@@ -8,10 +8,8 @@ steps/s (BASELINE.md).
 
 import json
 import os
-import sys
 
 import jax
-import jax.numpy as jnp
 
 
 BASELINE = 2_729_192.0
@@ -21,40 +19,23 @@ def main():
   nworld = int(os.environ.get('BENCH_NWORLD', 8192))
   nstep = int(os.environ.get('BENCH_NSTEP', 1000))
 
-  import mujoco
   import mujoco_warp_tpu as mjwt
-  from mujoco_warp_tpu import models, parallel
+  from mujoco_warp_tpu import models, parallel, snapshot
   from mujoco_warp_tpu.utils.benchmark import benchmark
 
-  mjm = mujoco.MjModel.from_xml_path(models.HUMANOID)
-  m = mjwt.put_model(mjm)
+  m = snapshot.load(models.snapshot_path('humanoid'))
   # protocol-faithful default: the reference config runs nconmax=24
   # (benchmarks/config.txt:22, benchmarks/README.md:56); BENCH_NCONMAX
   # overrides for tuned secondary runs
   d = mjwt.make_data(m, nconmax=int(os.environ.get('BENCH_NCONMAX', 24)))
   batch = parallel.make_batch(m, d, nworld)
 
-  # shard over all local devices (one chip locally; a pod slice scales
-  # the same code with zero collectives in the step)
+  # shard the world axis over all local devices (the step itself has
+  # no collectives)
   mesh = parallel.make_mesh()
   batch = parallel.shard_batch(batch, mesh)
 
   metrics = benchmark(None, m, batch, nstep=nstep)  # None = step_batched
-
-  # roll-up of the committed per-scene suite artifact (VERDICT r4 #1:
-  # a scene counts only with an rc=0 JSONL row)
-  suite = {}
-  suite_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            'BENCH_suite_r05.jsonl')
-  if os.path.exists(suite_path):
-    for line in open(suite_path):
-      try:
-        row = json.loads(line)
-      except Exception:
-        continue
-      name = row.get('metric', '')
-      if 'value' in row:  # latest rc=0 row per scene wins
-        suite[name.replace('_steps_per_sec', '')] = row['value']
 
   value = metrics['steps_per_sec']
   result = {
@@ -69,9 +50,9 @@ def main():
       'converged_worlds': metrics['converged_worlds'],
       'ncon_mean': round(metrics['ncon_mean'], 2),
       'solver_niter_mean': round(metrics['solver_niter_mean'], 2),
-      'device': str(jax.devices()[0]),
-      'suite_scenes_ok': len(suite),
-      'suite_steps_per_sec': suite,
+      'device': {'platform': jax.devices()[0].platform,
+                 'kind': jax.devices()[0].device_kind,
+                 'count': len(jax.devices())},
   }
   print(json.dumps(result))
 

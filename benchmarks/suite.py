@@ -1,6 +1,6 @@
 """Reference benchmark suite runner: executes the configs from the
 reference's benchmarks/config.txt (copied to scenes/config.txt) on the
-TPU engine and emits one JSON line per config — the analogue of the
+engine and emits one JSON line per config — the analogue of the
 reference's run.sh over mjwarp-testspeed (reference benchmarks/run.sh,
 testspeed.py:46-161).
 
@@ -66,17 +66,6 @@ def run_config(name: str, cfg: dict, nworld: int | None = None,
   nstep = nstep or int(os.environ.get('BENCH_NSTEP', cfg['nstep']))
 
   mjm = mujoco.MjModel.from_xml_path(cfg['mjcf'])
-  # giant-nv scenes: dense efc_J (W, njmax, nv) plus the solver's
-  # J-sized temporaries exceed HBM at full batch (aloha_cloth: nv=2716
-  # -> 2.2 GB for J alone); microbatch the step over 8-world chunks
-  if '_MJWT_CHUNK_USER' not in globals():
-    globals()['_MJWT_CHUNK_USER'] = os.environ.get('MJWT_STEP_CHUNK')
-  if globals()['_MJWT_CHUNK_USER'] is not None:
-    os.environ['MJWT_STEP_CHUNK'] = globals()['_MJWT_CHUNK_USER']
-  elif mjm.nv * cfg['njmax'] * nworld * 4 > 1.5e9 and nworld % 8 == 0:
-    os.environ['MJWT_STEP_CHUNK'] = '8'
-  else:
-    os.environ.pop('MJWT_STEP_CHUNK', None)
   m = mjwt.put_model(mjm)
   d = mjwt.make_data(m, nconmax=cfg['nconmax'])
   if mjm.nkey > 0 and cfg['replay'] is None:

@@ -1,50 +1,24 @@
-"""mujoco_warp_tpu — a TPU-native batched MuJoCo-class physics engine.
+"""mujoco_warp_tpu — a batched MuJoCo-class physics engine in JAX.
 
 Same capabilities as the GPU reference (mujoco_warp), re-designed for
-JAX/XLA/Pallas: single-world pure-functional pipeline, vmap over worlds,
-pjit/shard_map over a device mesh. See SURVEY.md for the layer map.
+JAX/XLA: single-world pure-functional pipeline, vmap over worlds,
+sharding over a device mesh. See SURVEY.md for the layer map.
 """
 
 import os as _os
 
+import jax as _jax
 
-def default_cache_dir() -> str:
-  """Cache location for compiled executables + probe memos. Defaults to
-  a directory INSIDE the repo/package checkout so a warmed cache ships
-  with the source (fresh containers keep the checkout but not ~/.cache
-  — the round-4 cold-jit regression was every fresh process paying the
-  full compile because ~/.cache never survived). Falls back to ~/.cache
-  when the checkout is not writable (installed site-packages)."""
-  env = _os.environ.get('MJWT_CACHE_DIR')
-  if env:
-    return env
-  repo_cache = _os.path.join(
+# Persistent compilation cache. Where JAX_COMPILATION_CACHE_DIR is set,
+# JAX reads it and the package sets nothing; otherwise the cache lives at
+# a fixed path in the checkout (a fixed path, because the path is part of
+# the cache key).
+if not _os.environ.get('JAX_COMPILATION_CACHE_DIR'):
+  _jax.config.update('jax_compilation_cache_dir', _os.path.join(
       _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-      '.mjwt_cache')
-  parent = _os.path.dirname(repo_cache)
-  if _os.path.isdir(repo_cache) or _os.access(parent, _os.W_OK):
-    return repo_cache
-  return _os.path.join(_os.path.expanduser('~'), '.cache', 'mjwt_xla')
-
-
-def _enable_compilation_cache() -> None:
-  """Persistent XLA/Mosaic compilation cache (reference analogue: Warp's
-  kernel cache makes its graph capture 0.3s; without this every fresh
-  process pays the full 30-400s jit). MJWT_NO_CACHE=1 disables,
-  MJWT_CACHE_DIR overrides the location."""
-  if _os.environ.get('MJWT_NO_CACHE', '0') == '1':
-    return
-  import jax
-  cache_dir = default_cache_dir()
-  try:
-    jax.config.update('jax_compilation_cache_dir', cache_dir)
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
-    jax.config.update('jax_persistent_cache_min_entry_size_bytes', 0)
-  except Exception:  # old jax without these flags: soft-fail
-    pass
-
-
-_enable_compilation_cache()
+      '.mjwt_cache'))
+  _jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
+  _jax.config.update('jax_persistent_cache_min_entry_size_bytes', 0)
 
 from .io import (
     find_keys,

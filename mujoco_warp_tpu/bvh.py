@@ -1,10 +1,10 @@
 """Mesh-cluster bounding-volume acceleration (the reference's bvh.py
-role, re-designed for TPU).
+role, re-designed for vector lanes).
 
 The reference builds a binary BVH per mesh and walks it with a
 per-thread stack (mujoco_warp/_src/bvh.py:35,297; ray.py:701-799).
 Stack-based pointer chasing is the worst possible shape for vector
-lanes, so the TPU formulation flattens the hierarchy to ONE level of
+lanes, so this formulation flattens the hierarchy to ONE level of
 fixed-size face clusters:
 
 * build (host, put_model time): sort faces by the Morton code of their

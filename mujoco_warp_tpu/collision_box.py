@@ -35,8 +35,7 @@ _ROTMORE[5, 0, 0], _ROTMORE[5, 1, 1], _ROTMORE[5, 2, 2] = -1, 1, -1
 
 def _sel3(idx, a, b, c):
   """Static 3-way select by a traced index in {0,1,2} — compiles to two
-  selects instead of a per-world gather (gathers along the lane axis
-  are the slow TPU pattern)."""
+  selects instead of a per-world gather."""
   return jnp.where(idx == 0, a, jnp.where(idx == 1, b, c))
 
 

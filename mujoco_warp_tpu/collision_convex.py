@@ -3,7 +3,7 @@ Portal Refinement) with fixed iteration counts and mask-based control
 flow.
 
 Replaces the reference's GJK/EPA kernels (mujoco_warp/_src/
-collision_gjk.py, collision_convex.py) with a TPU-native formulation:
+collision_gjk.py, collision_convex.py) with a fixed-shape formulation:
 MPR handles the penetrating case directly (no polytope bookkeeping — a
 3-vertex portal refined toward the origin ray), and a fixed-iteration
 GJK gives separation distance for margin-positive models. All loops are
@@ -337,7 +337,7 @@ def mpr_multi(t1: int, t2: int):
   clipping (mujoco_warp/_src/collision_convex.py:706-1267, gated on
   MULTICCD); polygon extraction + Sutherland-Hodgman clipping is
   pointer-chasing over mesh topology and maps poorly onto fixed-shape
-  vector lanes. The TPU-native equivalent used here: tilt geom2 by
+  vector lanes. The fixed-shape equivalent used here: tilt geom2 by
   +/-_MULTI_TILT about the two contact tangent axes (rotating about the
   base contact point) and re-run the same fixed-iteration portal
   refinement. On a flat contact patch each tilt lands the deepest point

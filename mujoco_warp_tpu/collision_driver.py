@@ -1,14 +1,14 @@
 """Collision pipeline: static filtered pair list -> vectorized
 narrowphase -> mask compaction into the per-world contact pool.
 
-TPU-native reformulation of the reference's driver
+Fixed-shape reformulation of the reference's driver
 (mujoco_warp/_src/collision_driver.py): the pair list is filtered at
 put_model time (io._collision_pairs), every candidate contact has a
 static slot, and "allocation" is a prefix-sum scatter instead of a global
 atomic cursor (reference collision_core.py:160). Broadphase culling
 becomes a mask (candidates beyond bounding-sphere overlap produce
-dist=+inf) rather than a variable-length pair queue — on TPU, computing a
-cheap candidate and masking beats divergent queue management.
+dist=+inf) rather than a variable-length pair queue: computing a cheap
+candidate and masking keeps every shape static.
 """
 
 from __future__ import annotations
@@ -77,9 +77,8 @@ def _candidate_params(m: Model, g1s: np.ndarray, g2s: np.ndarray,
           jnp.asarray(condims, dtype=jnp.int32))
 
 
-# Cull/compaction pays per-world dynamic gathers (the slow TPU pattern —
-# see memory/tpu-perf-model): only worth it when narrowphase is
-# expensive (MPR/mesh/SDF) or the group is enormous (terrain/kitchen).
+# Cull/compaction pays per-world dynamic gathers: only worth it when
+# narrowphase is expensive (MPR/mesh/SDF) or the group is enormous (terrain/kitchen).
 _CULL_THRESHOLD = 64          # groups with costly colliders
 _CULL_THRESHOLD_CHEAP = 2048  # pure-primitive groups
 
@@ -120,7 +119,7 @@ def make_pack(parts: list, dtype):
 
 def finalize(d: Data, parts: list, ncull_dropped, dtype) -> Data:
   """Candidate-pool compaction shared by the NXN and SAP drivers:
-  top-K GATHER of active rows (TPU scatters serialize; gathers don't),
+  top-K GATHER of active rows (a gather, not a scatter),
   overflow counted into ncollision (C mj_collision atomic-pool
   analogue, reference collision_core.py:160)."""
   con = d.contact
@@ -179,7 +178,7 @@ def collision(m: Model, d: Data) -> Data:
   (reference collision_driver.py:755).
 
   Groups larger than _CULL_THRESHOLD get a per-step bounding-sphere
-  cull + top-K compaction first (the TPU-native analogue of the
+  cull + top-K compaction first (the fixed-shape analogue of the
   reference's SAP broadphase, collision_driver.py:554-643): narrowphase
   then runs on K gathered pairs instead of every static candidate.
   Culled mesh pairs use decimated hulls (m.mesh_hullvert_small) so the

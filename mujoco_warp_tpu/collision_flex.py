@@ -1,6 +1,6 @@
 """Flex (deformable) collision: rigid geoms vs flex surface.
 
-TPU-native reformulation of the reference flex narrowphase
+Fixed-shape reformulation of the reference flex narrowphase
 (reference collision_flex.py:261 `_flex_plane_narrowphase`,
 :381 `_flex_narrowphase_dim2`, :532 `_flex_narrowphase_dim3`):
 

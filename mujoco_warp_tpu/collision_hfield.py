@@ -2,7 +2,7 @@
 (reference: mujoco_warp/_src/collision_hfield path inside
 collision_convex.py:158 hfield-tiled CCD; C mjc_ConvexHField).
 
-TPU-native formulation: instead of enumerating prisms under the geom's
+Fixed-shape formulation: instead of enumerating prisms under the geom's
 AABB with dynamic counts, each contact candidate tests a STATIC KxK
 neighborhood of grid cells around the geom's (x, y) — 2 triangles per
 cell, branch-free closest-point-on-triangle tests, top-k deepest
@@ -192,7 +192,7 @@ def prism_mpr_hfield(m: Model, hid: int, nrow: int, ncol: int, t2: int,
                      p1, m1, s1, p2, m2, s2):
   """Exact hfield narrowphase for convex geoms: MPR between each cell
   prism (a 6-vertex convex, treated as a mesh hull) and the geom — the
-  TPU formulation of C mjc_ConvexHField / the reference's hfield-tiled
+  fixed-shape formulation of C mjc_ConvexHField / the reference's hfield-tiled
   CCD (reference collision_convex.py:158). Returns the _NCONH deepest
   contacts (dist, pos, frame), frame normal hfield -> geom."""
   from . import collision_convex

@@ -1,6 +1,6 @@
 """Flex (deformable) support: precompute, kinematics, passive forces.
 
-TPU-native reformulation of the reference flex stack (reference
+Fixed-shape reformulation of the reference flex stack (reference
 smooth.py:228-330 `_flex_vertices`/`_flex_edges`,
 passive.py:567-746 `_flex_elasticity`/`_flex_bending`):
 
@@ -10,7 +10,7 @@ passive.py:567-746 `_flex_elasticity`/`_flex_bending`):
   put_model time (vertex -> body, edge -> verts, element -> edges).
 - Vertex velocities use the closed form v = b + a x (p - c) where
   a = sum_k mask*qvel_k*cdof_ang_k and b = sum_k mask*qvel_k*cdof_lin_k
-  are two (nvert, nv) @ (nv, 3) mask matmuls — MXU work instead of the
+  are two (nvert, nv) @ (nv, 3) mask matmuls instead of the
   reference's per-dof scalar loops (smooth.py:304-328).
 - Force accumulation follows the reference's point-mass convention
   (passive.py:659-662: qfrc[body_dofadr + x] += F[x]), which assumes
@@ -200,7 +200,7 @@ def build(mjm) -> tuple:
 
   # candidate (geom, vertex/triangle) contact pairs, affinity-filtered
   # (reference collision_flex.py loops all geoms per thread and filters
-  # at runtime, :470-473; the static list is the TPU analogue)
+  # at runtime, :470-473; the static list replaces that filter)
   _PLANE, _SPHERE, _CAPSULE, _CYL, _BOX = 0, 2, 3, 5, 6
   prim = (_SPHERE, _CAPSULE, _CYL, _BOX)
   tri_flexid_np = np.asarray(tri_flexid, np.int32)

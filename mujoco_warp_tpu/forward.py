@@ -1,13 +1,15 @@
 """Step orchestration: forward dynamics pipeline + integrators.
 
-TPU-native counterpart of mujoco_warp/_src/forward.py. Every function is
-pure ``(Model, Data) -> Data``; ``step`` composes the full pipeline and is
+Counterpart of mujoco_warp/_src/forward.py. Every function is pure
+``(Model, Data) -> Data``; ``step`` composes the full pipeline and is
 designed to be wrapped as ``jax.jit(jax.vmap(step, in_axes=(None, 0)))`` —
 the XLA analogue of the reference's CUDA-graph-captured batched step
 (forward.py:1004; benchmark.py:128-137).
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,12 +31,15 @@ _EINSUM = dict(precision=jax.lax.Precision.HIGHEST)
 
 
 def named(name):
+  """Trace fn under a named scope (the stage name in profiler traces) and
+  at HIGHEST matmul precision: every f32 contraction on the step path is
+  full f32, never TF32, which GPUs would otherwise pick for unqualified
+  products. Every public step entry point carries this decorator."""
   def deco(fn):
+    @functools.wraps(fn)
     def wrapped(*args, **kw):
-      with jax.named_scope(name):
+      with jax.named_scope(name), jax.default_matmul_precision('highest'):
         return fn(*args, **kw)
-    wrapped.__name__ = fn.__name__
-    wrapped.__doc__ = fn.__doc__
     return wrapped
   return deco
 
@@ -216,15 +221,11 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
 
 @named('fwd_acceleration')
 def _fwd_acceleration_batched(m: Model, d: Data) -> Data:
-  """Batch-native acceleration: factor + solve in one Pallas kernel,
-  qLD cached for the CG solver's preconditioner."""
+  """Batch-native acceleration: batched factor + solve, qLD cached for
+  the CG solver's preconditioner."""
   qfrc_smooth = jax.vmap(
       lambda dd: (dd.qfrc_passive - dd.qfrc_bias + dd.qfrc_applied +
                   dd.qfrc_actuator + support.xfrc_accumulate(m, dd)))(d)
-  if solver_mod.uses_fused_kernel(m, d):
-    # the fused Pallas Newton solver computes qacc_smooth and the qM
-    # factor in-kernel — don't pay a second factorization here
-    return d.replace(qfrc_smooth=qfrc_smooth)
   qacc_smooth, qld = solver_mod.m_solve_factor(m, d.qM, qfrc_smooth)
   return d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth,
                    qLD=qld)
@@ -428,332 +429,24 @@ def step(m: Model, d: Data, control_fn=None, passive_fn=None,
 # ---------------------------------------------------------------------------
 
 
-@named('fwd_smooth')
-def _smooth_mega_batched(m: Model, d: Data, interpret: bool = False) -> Data:
-  """The smooth front AND velocity-stage tree math in ONE Pallas
-  worlds-in-lanes kernel: kinematics, frames, com_pos, crb, com_vel,
-  rne (pallas/smooth_kernels._smooth_mega_kernel). This replaces the
-  ~40 gather-bound XLA fusions the vmapped jnp stages cost."""
-  from .pallas import smooth_kernels
-  qpos = jax.vmap(lambda q: smooth._normalize_qpos(m, q))(d.qpos)
-  outs = smooth_kernels.smooth_mega_batched(
-      m, qpos, d.qvel,
-      d.mocap_pos if m.nmocap else None,
-      d.mocap_quat if m.nmocap else None,
-      interpret=interpret)
-  return d.replace(qpos=qpos, **outs)
-
-
-def _mega_gates(m: Model):
-  """(use_mega, interpret): whether forward_batched runs the Pallas
-  megakernel path, and whether the kernels run in interpret mode.
-  MJWT_FORCE_MEGA=1 forces the path on non-TPU backends (interpret
-  mode) so CPU CI can execute the exact code the TPU bench runs."""
-  import os as _os
-  _mega_cap = int(_os.environ.get('MJWT_MEGA_NV_CAP', '64'))
-  on_tpu = jax.default_backend() == 'tpu'
-  force = _os.environ.get('MJWT_FORCE_MEGA', '0') == '1'
-  use_mega = ((on_tpu or force) and
-              0 < m.nv <= _mega_cap and m.nbody <= 2 * _mega_cap and
-              not m.flex_meta.nflex)  # mega kernel has no flex stages yet
-  return use_mega, force and not on_tpu
-
-
-def _needs_preadv(m: Model) -> bool:
-  """True if any sensor reads pre-advance qvel (rne_postconstraint)."""
-  return bool(m.nsensor) and any(
-      m.sensor_type[s] in sensor_mod._RNE_POST_SENSORS
-      for s in range(m.nsensor))
-
-
-def _glue_mode(m: Model) -> int:
-  """Integration-diagonal mode baked into the glue kernel: 0 plain
-  euler, 1 euler+damping refactor, 2 implicitfast."""
-  if m.opt.integrator == IntegratorType.IMPLICITFAST:
-    return 2
-  if (m.has_damping and
-      not (m.opt.disableflags & DisableBit.EULERDAMP)):
-    return 1
-  return 0
-
-
-def _make_solve_glue(m: Model, d: Data, needs_preadv: bool):
-  """The glue-folded back half as a standalone stage fn: actuation +
-  passive + whole Newton solve + (optionally) advance, one Pallas
-  kernel. Factored out of _glue_stages so _glue_gates can probe-compile
-  it before committing the dispatch (round-3 aloha_pot crash)."""
-  mode = _glue_mode(m)
-
-  def solve_glue(dd):
-    from . import io as io_mod
-    from .pallas import solver_kernels
-    from .types import ConeType
-    nconmax_l = dd.contact.dist.shape[-1]
-    ne, nf, nl, stride, njmax_l = io_mod.efc_layout(m, nconmax_l)
-    use_ws = not (m.opt.disableflags & DisableBit.WARMSTART)
-    ell = None
-    con_friction = con_dim = impratio = None
-    if (m.opt.cone == ConeType.ELLIPTIC and nconmax_l > 0 and
-        stride >= 2):
-      ell = (ne + nf + nl, stride, nconmax_l)
-      con_friction = dd.contact.friction
-      con_dim = jnp.where(dd.contact.geom[..., 0] >= 0,
-                          dd.contact.dim, 0).astype(dd.qpos.dtype)
-      impratio = m.opt.impratio
-    run = solver_kernels.make_glue_kernel(m, njmax_l, ne, nf, use_ws,
-                                          mode, ell=ell)
-    qfx = jax.vmap(lambda x: (x.qfrc_applied + support.xfrc_accumulate(
-        m, x) - x.qfrc_bias))(dd)
-    perm, inv_perm = solver_kernels.world_sort_perm(dd.solver_niter)
-    ext = {}
-    if m.na:
-      ext['act'] = dd.act
-    if m.ntendon:
-      ext['ten_length'] = dd.ten_length
-      ext['ten_j'] = dd.ten_J
-    outs = run(dd.qM, dd.efc_J, dd.efc_D, dd.efc_aref,
-               dd.efc_frictionloss, dd.qpos, dd.qvel, dd.ctrl, qfx,
-               dd.qacc_warmstart, m.opt.tolerance, m.stat.meaninertia,
-               m.opt.timestep, con_friction, con_dim, impratio,
-               perm=perm, inv_perm=inv_perm, **ext)
-    qpos_new, qvel_new = outs.pop('qpos'), outs.pop('qvel')
-    act_new = outs.pop('act', None)
-    dd = dd.replace(**outs)
-    if not needs_preadv:
-      dd = dd.replace(qpos=qpos_new, qvel=qvel_new,
-                      time=dd.time + m.opt.timestep,
-                      qacc_warmstart=dd.qacc)
-      if act_new is not None:
-        dd = dd.replace(act=act_new)
-    return dd
-  return solve_glue
-
-
-def _glue_gates(m: Model, d: Data) -> bool:
-  """True when step_batched runs the fully-folded back half: actuation +
-  passive + qfrc_smooth + Newton solve + Euler advance in ONE Pallas
-  kernel (pallas/solver_kernels._glue_kernel). MJWT_GLUE=0 falls back.
-  On TPU the kernel is probe-compiled first: a Mosaic rejection logs a
-  warning and falls back instead of crashing the user's jit."""
-  import os as _os
-  if _os.environ.get('MJWT_GLUE', '1') == '0':
-    return False
-  if not (_mega_ok(m, d) and solver_mod.uses_fused_kernel(m, d)):
-    return False
-  from .pallas import solver_kernels
-  if not solver_kernels.glue_supported(m):
-    return False
-  from .pallas import probe
-  fn = _make_solve_glue(m, d, _needs_preadv(m))
-  key = (f'glue:{probe.model_sig(m)}:w{d.qpos.shape[0]}'
-         f'nc{d.contact.dist.shape[-1]}')
-  return probe.probe_stage(key, fn, d)
-
-
-def _mega_ok(m: Model, d: Data) -> bool:
-  """Static mega gate + Mosaic probe of the smooth megakernel."""
-  use_mega, interp = _mega_gates(m)
-  if not use_mega or interp:
-    return use_mega
-  from .pallas import probe
-  key = f'smooth_mega:{probe.model_sig(m)}:w{d.qpos.shape[0]}'
-  return probe.probe_stage(
-      key, lambda dd: _smooth_mega_batched(m, dd), d)
-
-
-def _contact_mega_ok(m: Model, d: Data, kernel, meta,
-                     interp: bool) -> bool:
-  """Mosaic probe of the fused collision+constraint megakernel."""
-  if interp:
-    return True
-  from .pallas import contact_kernels, probe
-  key = (f'contact_efc:{probe.model_sig(m)}'
-         f':nc{d.contact.dist.shape[-1]}:w{d.qpos.shape[0]}')
-  return probe.probe_stage(
-      key,
-      lambda dd: contact_kernels.contact_efc(m, dd, kernel, meta), d)
-
-
-def _glue_stages(m: Model, d: Data) -> list:
-  """Stage list for the glue-folded STEP (integration included).
-  Ordering: acc-stage sensors read only solver outputs (qacc, cacc,
-  actuator_force, efc_force — never qpos/qvel), so the in-kernel advance
-  can land before sensor_acc; models with rne_postconstraint sensors
-  (which read qvel) keep the XLA advance after sensor_acc instead."""
-  import numpy as np
+def batched_stages(m: Model, d: Data) -> list:
+  """[(name, fn)] for the exact stage sequence forward_batched executes
+  for this (m, d). testspeed --event_trace times the same list, so the
+  trace describes the real hot path."""
   vm = lambda fn, **kw: jax.vmap(lambda dd: fn(m, dd, **kw))
-  use_mega, interp = _mega_gates(m)
-  assert use_mega
   stages = []
   add = lambda name, fn: stages.append((name, fn))
-  add('smooth_mega[pallas]',
-      lambda dd: _smooth_mega_batched(m, dd, interpret=interp))
-  if m.ncam or m.nlight:
-    add('camlight', vm(smooth.camlight))
-  if m.ntendon:
-    # tendon lengths/Jacobians feed the glue kernel's tendon
-    # transmission + passive terms; armature/bias no-op without
-    # tendon_armature
-    add('tendon', vm(smooth.tendon))
-    add('tendon_armature', vm(smooth.tendon_armature))
-    add('tendon_bias', vm(smooth.tendon_bias))
-  from .pallas import contact_kernels
-  nconmax = d.contact.dist.shape[-1]
-  use_cmega = (m.opt.run_collision_detection and nconmax > 0 and
-               contact_kernels.supports(m, d))
-  if use_cmega:
-    kernel, meta = contact_kernels.make_contact_kernel(m, nconmax)
-    use_cmega = _contact_mega_ok(m, d, kernel, meta, interp)
-  if use_cmega:
-    add('contact_efc_mega[pallas]',
-        lambda dd: contact_kernels.contact_efc(m, dd, kernel, meta,
-                                               interpret=interp))
-  else:
-    if m.opt.run_collision_detection:
-      add('collision', vm(collision_driver.collision))
-    add('make_constraint', vm(constraint.make_constraint))
-
-  if m.nu:
-    # actuator length/velocity via static joint gathers (Data parity +
-    # actuatorpos/vel sensors); moment is constant for scalar-joint
-    # transmission and prefilled by make_data; tendon actuators read
-    # ten_length/ten_J instead (moment = gear * ten_J)
-    from .types import TrnType
-    is_ten = np.asarray([m.actuator_trntype[u] == TrnType.TENDON
-                         for u in range(m.nu)])
-    jids = np.asarray([0 if is_ten[u] else int(m.actuator_trnid[u][0])
-                       for u in range(m.nu)])
-    tids = np.asarray([int(m.actuator_trnid[u][0]) if is_ten[u] else 0
-                       for u in range(m.nu)])
-    qadr = np.asarray(m.jnt_qposadr)[jids]
-    dadr = np.asarray(m.jnt_dofadr)[jids]
-    if is_ten.any():
-      # static one-hot gear moments for the joint rows (built here at
-      # stage-build time — device_get inside the traced stage would be
-      # the BENCH_r02 crash class)
-      mom_joint = np.zeros((m.nu, m.nv), np.float32)
-      g0_np = np.asarray(jax.device_get(m.actuator_gear))[:, 0]  # pallas-lint: ok(stage-build time)
-      for u in range(m.nu):
-        if not is_ten[u]:
-          mom_joint[u, dadr[u]] = g0_np[u]
-
-    def act_len_vel(dd):
-      gear0 = m.actuator_gear[:, 0][None]
-      length = dd.qpos[:, qadr]
-      velocity = dd.qvel[:, dadr]
-      if is_ten.any():
-        tvel = jnp.einsum('wtn,wn->wt', dd.ten_J, dd.qvel, **_EINSUM)
-        sel = jnp.asarray(is_ten)[None]
-        length = jnp.where(sel, dd.ten_length[:, tids], length)
-        velocity = jnp.where(sel, tvel[:, tids], velocity)
-        # joint rows: static one-hot gear at the dof; tendon rows:
-        # gear * ten_J (make_data's scalar-joint prefill does not run
-        # for mixed transmissions)
-        moment = jnp.where(
-            jnp.asarray(is_ten)[None, :, None],
-            gear0[..., None] * dd.ten_J[:, tids],
-            jnp.asarray(mom_joint)[None])
-        dd = dd.replace(actuator_moment=moment)
-      return dd.replace(actuator_length=length * gear0,
-                        actuator_velocity=velocity * gear0)
-    add('act_len_vel', act_len_vel)
+  add('fwd_position', vm(fwd_position, factorize=False))
   add('sensor_pos', vm(sensor_mod.sensor_pos))
   if m.opt.enableflags & 2:  # EnableBit.ENERGY
     add('energy_pos', vm(sensor_mod.energy_pos))
+  add('fwd_velocity', vm(fwd_velocity))
   add('sensor_vel', vm(sensor_mod.sensor_vel))
   if m.opt.enableflags & 2:
     add('energy_vel', vm(sensor_mod.energy_vel))
-
-  needs_preadv = _needs_preadv(m)
-  add('solve_glue[pallas]', _make_solve_glue(m, d, needs_preadv))
-  add('sensor_acc', vm(sensor_mod.sensor_acc))
-  if needs_preadv:
-    # rne_postconstraint sensors read pre-advance qvel, so integration
-    # applies after sensor_acc; qacc_euler already holds the kernel's
-    # integration-diagonal solve for BOTH euler and implicitfast
-    add('advance', lambda dd: jax.vmap(
-        lambda x: _advance(m, x, x.act_dot, x.qacc_euler))(dd))
-  return stages
-
-
-def batched_stages(m: Model, d: Data, for_step: bool = False) -> list:
-  """[(name, fn)] for the EXACT stage sequence forward_batched executes
-  for this (m, d) — dispatch decisions (mega gates, fused solver)
-  resolved. forward_batched folds this list; testspeed --event_trace
-  times the same list, so the trace describes the real hot path.
-  for_step=True returns the STEP sequence: when the glue fold applies,
-  integration is inside solve_glue and no separate integrator runs."""
-  if for_step and _glue_gates(m, d):
-    return _glue_stages(m, d)
-  vm = lambda fn, **kw: jax.vmap(lambda dd: fn(m, dd, **kw))
-  # size guard: Mosaic compile time for the statically-unrolled smooth
-  # kernel grows superlinearly with the tree size — a 3-humanoid scene
-  # (nv=81) sat in the remote compiler for hours. Past the cap the XLA
-  # path compiles in minutes and is the better trade.
-  use_mega, interp = _mega_gates(m)
-  stages = []
-  add = lambda name, fn: stages.append((name, fn))
-  if use_mega and not interp:
-    use_mega = _mega_ok(m, d)
-  if use_mega:
-    add('smooth_mega[pallas]',
-        lambda dd: _smooth_mega_batched(m, dd, interpret=interp))
-    if m.ncam or m.nlight:
-      add('camlight', vm(smooth.camlight))
-    if m.ntendon:
-      add('tendon', vm(smooth.tendon))
-      add('tendon_armature', vm(smooth.tendon_armature))
-    from .pallas import contact_kernels
-    nconmax = d.contact.dist.shape[-1]
-    use_cmega = (m.opt.run_collision_detection and nconmax > 0 and
-                 contact_kernels.supports(m, d))
-    if use_cmega:
-      kernel, meta = contact_kernels.make_contact_kernel(m, nconmax)
-      use_cmega = _contact_mega_ok(m, d, kernel, meta, interp)
-    if use_cmega:
-      # collision + constraint assembly fused into one Pallas kernel
-      add('contact_efc_mega[pallas]',
-          lambda dd: contact_kernels.contact_efc(m, dd, kernel, meta,
-                                                 interpret=interp))
-    else:
-      if m.opt.run_collision_detection:
-        add('collision', vm(collision_driver.collision))
-      add('make_constraint', vm(constraint.make_constraint))
-    add('transmission', vm(smooth.transmission))
-    add('sensor_pos', vm(sensor_mod.sensor_pos))
-    if m.opt.enableflags & 2:  # EnableBit.ENERGY
-      add('energy_pos', vm(sensor_mod.energy_pos))
-
-    # velocity stage: tree math (com_vel/rne) already done in the mega
-    # kernel; only actuator/tendon velocities + passive forces remain
-    def vel_glue(dd):
-      if m.nu:
-        dd = dd.replace(actuator_velocity=jnp.einsum(
-            'wun,wn->wu', dd.actuator_moment, dd.qvel, **_EINSUM))
-      if m.ntendon:
-        dd = dd.replace(ten_velocity=jnp.einsum(
-            'wtn,wn->wt', dd.ten_J, dd.qvel, **_EINSUM))
-        dd = vm(smooth.tendon_bias)(dd)
-      return dd
-    add('velocity_glue', vel_glue)
-    add('passive', vm(passive_mod.passive))
-    add('sensor_vel', vm(sensor_mod.sensor_vel))
-    if m.opt.enableflags & 2:
-      add('energy_vel', vm(sensor_mod.energy_vel))
-  else:
-    add('fwd_position', vm(fwd_position, factorize=False))
-    add('sensor_pos', vm(sensor_mod.sensor_pos))
-    if m.opt.enableflags & 2:  # EnableBit.ENERGY
-      add('energy_pos', vm(sensor_mod.energy_pos))
-    add('fwd_velocity', vm(fwd_velocity))
-    add('sensor_vel', vm(sensor_mod.sensor_vel))
-    if m.opt.enableflags & 2:
-      add('energy_vel', vm(sensor_mod.energy_vel))
   add('fwd_actuation', vm(fwd_actuation))
   add('fwd_acceleration', lambda dd: _fwd_acceleration_batched(m, dd))
-  fused = solver_mod.uses_fused_kernel(m, d)
-  add('solve[pallas]' if fused else 'solve',
-      lambda dd: solver_mod.solve(m, dd))
+  add('solve', lambda dd: solver_mod.solve(m, dd))
   add('sensor_acc', vm(sensor_mod.sensor_acc))
   return stages
 
@@ -764,9 +457,8 @@ _PATH_LOGGED: set = set()
 def _fold_stages(stages: list, d: Data) -> Data:
   names = tuple(n for n, _ in stages)
   if names not in _PATH_LOGGED:
-    # one line per distinct stage sequence so users can see whether
-    # their model rides the Pallas megakernels or the XLA fallback
-    # (VERDICT r2: silent path selection hid a 100x perf cliff)
+    # one line per distinct stage sequence, so users can see the path
+    # their model takes
     _PATH_LOGGED.add(names)
     import logging
     logging.getLogger(__name__).info(
@@ -776,10 +468,10 @@ def _fold_stages(stages: list, d: Data) -> Data:
   return d
 
 
+@named('forward')
 def forward_batched(m: Model, d: Data) -> Data:
-  """forward() over a leading world axis: the smooth pipeline runs as
-  one Pallas megakernel on TPU; collision/constraint/solver stay at XLA
-  level; linear solves batch to one Pallas kernel each."""
+  """forward() over a leading world axis: vmapped stages, batched linear
+  solves and a batch-native constraint solve."""
   return _fold_stages(batched_stages(m, d), d)
 
 
@@ -787,16 +479,9 @@ def forward_batched(m: Model, d: Data) -> Data:
 def _euler_batched(m: Model, d: Data) -> Data:
   qacc = d.qacc
   if m.has_damping and not (m.opt.disableflags & DisableBit.EULERDAMP):
-    if (solver_mod.uses_fused_kernel(m, d) and
-        m.opt.integrator == IntegratorType.EULER):
-      # the fused Newton kernel already solved (qM + h diag(B)) qacc'
-      qacc = d.qacc_euler
-    else:
-      qfrc = d.qfrc_smooth + d.qfrc_constraint
-      # (qM + h diag(B)) keeps tree sparsity — the tree-LDL kernel adds
-      # the diagonal in-kernel without materializing mh
-      qacc, _ = solver_mod.m_solve_factor(
-          m, d.qM, qfrc, diag=m.opt.timestep * m.dof_damping)
+    qfrc = d.qfrc_smooth + d.qfrc_constraint
+    qacc, _ = solver_mod.m_solve_factor(
+        m, d.qM, qfrc, diag=m.opt.timestep * m.dof_damping)
   return jax.vmap(lambda dd, qa: _advance(m, dd, dd.act_dot, qa))(d, qacc)
 
 
@@ -807,7 +492,7 @@ def _implicit_batched(m: Model, d: Data) -> Data:
   mh = d.qM - m.opt.timestep * qderiv
   mh = 0.5 * (mh + jnp.swapaxes(mh, -1, -2))
   qfrc = d.qfrc_smooth + d.qfrc_constraint
-  qacc = solver_mod.spd_solve(m, mh, qfrc)
+  qacc = solver_mod.spd_solve(mh, qfrc)
   return jax.vmap(lambda dd, qa: _advance(m, dd, dd.act_dot, qa))(d, qacc)
 
 
@@ -865,9 +550,6 @@ def step_batched(m: Model, d: Data) -> Data:
 
 
 def _step_batched(m: Model, d: Data) -> Data:
-  if _glue_gates(m, d):
-    # fully-folded back half: integration happens inside solve_glue
-    return _fold_stages(batched_stages(m, d, for_step=True), d)
   d = forward_batched(m, d)
   if m.opt.integrator == IntegratorType.EULER:
     return _euler_batched(m, d)
@@ -878,6 +560,7 @@ def _step_batched(m: Model, d: Data) -> Data:
   raise NotImplementedError(f'integrator {m.opt.integrator}')
 
 
+@named('step1')
 def step1(m: Model, d: Data) -> Data:
   """Position/velocity stages only, for user ctrl injection between
   step1/step2 (reference forward.py:1022)."""
@@ -888,6 +571,7 @@ def step1(m: Model, d: Data) -> Data:
   return d
 
 
+@named('step2')
 def step2(m: Model, d: Data) -> Data:
   """Actuation onward + integrate (reference forward.py:1050)."""
   d = fwd_actuation(m, d)

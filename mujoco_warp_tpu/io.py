@@ -8,20 +8,25 @@ levels, dof ancestry mask, and filtered collision pair lists.
 
 MJCF ingestion deliberately stays on host via the ``mujoco`` package —
 the reference makes the same call (SURVEY §3.2) and reusing the C model
-compiler is the correct engineering choice on any backend.
+compiler is the correct engineering choice on any backend. Only the
+functions that take an ``MjModel`` import it, so stepping a Model (for
+example one loaded from a ``snapshot``) needs only JAX and numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import jax
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 
 from . import types
 from .types import Contact, Data, Model, Option, Statistic
+
+if TYPE_CHECKING:
+  import mujoco
 
 
 def _tup(x) -> tuple:
@@ -480,7 +485,7 @@ def _sample_octree_grid(mjm: mujoco.MjModel, meshid: int,
   """Resample a compiled MuJoCo mesh octree SDF (mjm.oct_*) onto a dense
   res^3 voxel grid spanning the root AABB (reference collision_sdf.py
   find_oct + sample_volume_sdf read the octree per query; a dense grid
-  turns every runtime query into one trilinear gather — TPU-native)."""
+  turns every runtime query into one trilinear gather)."""
   root = int(mjm.mesh_octadr[meshid])
   aabb = np.asarray(mjm.oct_aabb).reshape(-1, 2, 3)
   child = np.asarray(mjm.oct_child).reshape(-1, 8)
@@ -662,6 +667,8 @@ def _plugin_slot_names() -> dict:
   each registered name is probed by loading a one-instance model — the
   reference's own test registry learns slot ids the same way
   (ref test_data/collision_sdf/utils.py:44-70 register_sdf_plugins)."""
+  import mujoco
+
   from . import collision_sdf
   out = {}
   for name in collision_sdf._SDF_PLUGINS:
@@ -792,6 +799,7 @@ def _hfield_data(mjm: mujoco.MjModel) -> np.ndarray:
 
 
 def put_model(mjm: mujoco.MjModel) -> Model:
+  import mujoco
   _validate(mjm)
   _sdf_grids_cached = _build_sdf_grids(mjm)
   _geom_plugins_cached = _geom_plugins(mjm)
@@ -820,8 +828,8 @@ def put_model(mjm: mujoco.MjModel) -> Model:
       iterations=int(mjm.opt.iterations),
       ls_iterations=int(mjm.opt.ls_iterations),
       # parallel multi-alpha linesearch: ~6 fused kernels vs ~100 for the
-      # iterative variant — the right default on TPU (reference default
-      # is False on GPU, solver.py:481 offers both). It exploits phi'
+      # iterative variant (the reference defaults to the iterative one,
+      # solver.py:481 offers both). It exploits phi'
       # being piecewise-LINEAR, which the elliptic cone term breaks, so
       # elliptic models default to the iterative (safeguarded-Newton)
       # variant.
@@ -1156,6 +1164,7 @@ def _build_tactile(mjm: mujoco.MjModel) -> tuple:
   sensor's taxels are the vertices of its mesh (objid), attached to its
   geom (refid); candidate touching geoms are enumerated statically by
   contype/conaffinity vs the sensor geom."""
+  import mujoco
   _TACTILE = int(mujoco.mjtSensor.mjSENS_TACTILE)
   sensors = [s for s in range(mjm.nsensor)
              if int(mjm.sensor_type[s]) == _TACTILE]
@@ -1262,10 +1271,9 @@ def efc_layout(m: Model, nconmax: int):
 
 def _moment0(m: Model) -> jax.Array:
   """Initial actuator_moment. For scalar-joint transmission the moment
-  matrix is CONSTANT (one-hot x gear), so make_data prefils it and the
-  glue-folded step (forward._glue_stages) never rewrites the (nu, nv)
-  field — an 18 MB/step HBM write saved at 8192 worlds. All other
-  transmissions get zeros and smooth.transmission fills them per step."""
+  matrix is CONSTANT (one-hot x gear), so make_data prefills it. All
+  other transmissions get zeros and smooth.transmission fills them per
+  step."""
   from .types import JointType, TrnType
   nu, nv = m.nu, m.nv
   if nu == 0:
@@ -1364,7 +1372,7 @@ def make_data(m: Model, nconmax: int | None = None,
       flexedge_velocity=z(m.flex_meta.nedge),
       qfrc_spring=z(nv), qfrc_damper=z(nv), qfrc_gravcomp=z(nv),
       qfrc_fluid=z(nv), qfrc_passive=z(nv), qfrc_bias=z(nv),
-      qfrc_actuator=z(nv), qfrc_smooth=z(nv), qacc_smooth=z(nv), qacc_euler=z(nv),
+      qfrc_actuator=z(nv), qfrc_smooth=z(nv), qacc_smooth=z(nv),
       qfrc_constraint=z(nv), qfrc_inverse=z(nv), qacc=z(nv),
       contact=contact,
       efc_type=zi(njmax_actual), efc_id=zi(njmax_actual),
@@ -1465,6 +1473,7 @@ def reset_data_masked(m: Model, batch: Data, reset_mask: jax.Array,
 
 def find_keys(mjm: mujoco.MjModel, prefix: str) -> list[int]:
   """Keyframe ids whose name starts with prefix (reference io.py:2591)."""
+  import mujoco
   out = []
   for k in range(mjm.nkey):
     name = mujoco.mj_id2name(mjm, mujoco.mjtObj.mjOBJ_KEY, k)
@@ -1560,6 +1569,7 @@ def set_length_range(m: Model, mjm: mujoco.MjModel | None = None,
   if simulate:
     if mjm is None:
       raise ValueError('simulate=True needs the source MjModel')
+    import mujoco
     opt = mujoco.MjLROpt()
     for k, v in kwargs.items():
       setattr(opt, k, v)

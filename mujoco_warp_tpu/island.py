@@ -3,7 +3,7 @@ tree-tree adjacency + flood fill labelling d.tree_island; the reference
 keeps it disconnected from step, forward.py:534-536, and so do we: the
 partition exists for future per-island solving).
 
-TPU formulation: the per-world serial DFS becomes fixed-iteration
+Vectorized formulation: the per-world serial DFS becomes fixed-iteration
 min-label propagation over the tree-tree adjacency matrix — O(log ntree)
 matmul-like sweeps, fully vectorized."""
 

@@ -1,15 +1,11 @@
-"""Small-matrix linear algebra, unrolled for XLA fusion.
+"""Dense SPD linear algebra for one world (vmap supplies the batch).
 
-XLA's ``cholesky``/``triangular_solve`` lower to custom-calls that are
-pathologically slow on TPU for small batched matrices (nv <= ~60, batch =
-nworld): profiling the humanoid step showed them dominating the step.
-These unrolled versions emit only elementwise/slice ops, so under vmap
-they fuse into the surrounding pipeline — the role the reference's
-``wp.tile_cholesky`` plays on GPU (mujoco_warp/_src/smooth.py:1068,
-block_cholesky.py).
-
-All functions operate on a single world (vmap supplies the batch) and
-unroll over the static matrix dimension.
+Cholesky factorization and triangular solves go to XLA's own
+``cholesky`` and ``triangular_solve``, which lower to library calls
+(cuSOLVER and cuBLAS on a GPU, LAPACK on the CPU) and batch under vmap.
+An unrolled elementwise formulation would fuse into the surrounding
+kernels instead, but on the GPU it compiled into giant fused kernels
+whose code generation dominated the step's compile time (PERF.md).
 """
 
 from __future__ import annotations
@@ -18,150 +14,33 @@ import jax
 import jax.numpy as jnp
 
 
-_UNROLL_MAX = 32  # above this, full unrolling blows up compile time;
-                  # switch to the BLOCKED algorithms below (never to
-                  # XLA's cholesky/triangular_solve custom-calls, which
-                  # are pathologically slow batched on TPU — r5 profile:
-                  # three_humanoids nv=81 spent ~all of its 406 ms/step
-                  # in batched jnp.linalg.solve)
-_BLOCK = 16
-
-
-def _unrolled_cholesky(a: jax.Array) -> jax.Array:
-  """Lower Cholesky factor of SPD (n, n), unrolled column-by-column."""
-  n = a.shape[-1]
-  cols = []
-  for j in range(n):
-    s = a[:, j]
-    for k in range(j):
-      s = s - cols[k] * cols[k][j]
-    inv = jax.lax.rsqrt(jnp.maximum(s[j], 1e-15))
-    col = s * inv
-    # zero the strictly-upper part of this column
-    mask = jnp.arange(n) >= j
-    cols.append(jnp.where(mask, col, 0.0))
-  return jnp.stack(cols, axis=1)
-
-
-def _solve_right_lower_t(l: jax.Array, b: jax.Array) -> jax.Array:
-  """Solve X L^T = B for X with lower-triangular L (b_, b_) and
-  B (m, b_): column-by-column forward pass, unrolled. Under vmap the
-  per-column FMAs stay elementwise over (m,)."""
-  bb = l.shape[-1]
-  cols = []
-  for j in range(bb):
-    s = b[:, j]
-    for k in range(j):
-      s = s - cols[k] * l[j, k]
-    cols.append(s / l[j, j])
-  return jnp.stack(cols, axis=1)
-
-
-def _blocked_cholesky(a: jax.Array, block: int = _BLOCK) -> jax.Array:
-  """Right-looking blocked Cholesky: unrolled (block, block) diagonal
-  factors + unrolled triangular panel solves + Schur-complement matmuls
-  (the matmuls dominate and land on the MXU under vmap). The TPU-native
-  analogue of the reference's wp.tile_cholesky blocked factorization
-  (reference block_cholesky.py:22)."""
-  n = a.shape[-1]
-  npad = (-n) % block
-  nn = n + npad
-  if npad:
-    a = jnp.pad(a, ((0, npad), (0, npad)))
-    # unit diagonal on the padding keeps the factor well-defined
-    a = a + jnp.diag(jnp.concatenate(
-        [jnp.zeros(n, a.dtype), jnp.ones(npad, a.dtype)]))
-  nb = nn // block
-  l = jnp.zeros_like(a)
-  for k in range(nb):
-    kb, ke = k * block, (k + 1) * block
-    akk = a[kb:ke, kb:ke]
-    lkk = _unrolled_cholesky(akk)
-    l = l.at[kb:ke, kb:ke].set(lkk)
-    if ke < nn:
-      ark = a[ke:, kb:ke]                    # (r, block) panel
-      lrk = _solve_right_lower_t(lkk, ark)
-      l = l.at[ke:, kb:ke].set(lrk)
-      # Schur complement: one (r, block) x (block, r) matmul
-      a = a.at[ke:, ke:].add(-lrk @ lrk.T)
-  return l[:n, :n]
-
-
-def _blocked_solve_lower(l: jax.Array, b: jax.Array,
-                         block: int = _BLOCK) -> jax.Array:
-  """Forward substitution by blocks: off-diagonal contributions are
-  matvecs, diagonal blocks use the unrolled solve."""
-  n = l.shape[-1]
-  nb = -(-n // block)
-  xs = []
-  for k in range(nb):
-    kb, ke = k * block, min((k + 1) * block, n)
-    s = b[kb:ke]
-    for j in range(k):
-      jb, je = j * block, min((j + 1) * block, n)
-      s = s - l[kb:ke, jb:je] @ xs[j]
-    xs.append(solve_lower(l[kb:ke, kb:ke], s))
-  return jnp.concatenate(xs, axis=0)
-
-
-def _blocked_solve_upper_t(l: jax.Array, b: jax.Array,
-                           block: int = _BLOCK) -> jax.Array:
-  """Backward substitution by blocks on L^T."""
-  n = l.shape[-1]
-  nb = -(-n // block)
-  xs: list = [None] * nb
-  for k in range(nb - 1, -1, -1):
-    kb, ke = k * block, min((k + 1) * block, n)
-    s = b[kb:ke]
-    for j in range(nb - 1, k, -1):
-      jb, je = j * block, min((j + 1) * block, n)
-      s = s - l[jb:je, kb:ke].T @ xs[j]
-    xs[k] = solve_upper_t(l[kb:ke, kb:ke], s)
-  return jnp.concatenate(xs, axis=0)
-
-
 def cholesky(a: jax.Array) -> jax.Array:
-  """Lower Cholesky factor of SPD (n, n): fully unrolled below
-  _UNROLL_MAX, blocked (unrolled tiles + MXU Schur matmuls) above."""
-  n = a.shape[-1]
-  if n == 0:           # static-only models (nv = 0)
+  """Lower Cholesky factor of SPD (n, n); the strictly-upper part is
+  zero."""
+  if a.shape[-1] == 0:           # static-only models (nv = 0)
     return a
-  if n > _UNROLL_MAX:
-    return _blocked_cholesky(a)
-  return _unrolled_cholesky(a)
+  return jnp.tril(jax.lax.linalg.cholesky(a, symmetrize_input=False))
 
 
 def solve_lower(l: jax.Array, b: jax.Array) -> jax.Array:
-  """Solve L x = b with lower-triangular L, forward substitution."""
-  n = l.shape[-1]
-  x = b
-  for j in range(n):
-    xj = x[j] / l[j, j]
-    mask = jnp.arange(n) > j
-    x = jnp.where(mask, x - l[:, j] * xj, x)
-    x = x.at[j].set(xj)
-  return x
+  """Solve L x = b with lower-triangular L."""
+  return jax.lax.linalg.triangular_solve(
+      l, b[..., None], left_side=True, lower=True)[..., 0]
 
 
 def solve_upper_t(l: jax.Array, b: jax.Array) -> jax.Array:
-  """Solve L^T x = b with lower-triangular L, backward substitution."""
-  n = l.shape[-1]
-  x = b
-  for j in range(n - 1, -1, -1):
-    xj = x[j] / l[j, j]
-    mask = jnp.arange(n) < j
-    x = jnp.where(mask, x - l[j, :] * xj, x)
-    x = x.at[j].set(xj)
-  return x
+  """Solve L^T x = b with lower-triangular L."""
+  return jax.lax.linalg.triangular_solve(
+      l, b[..., None], left_side=True, lower=True, transpose_a=True)[..., 0]
 
 
 def cho_solve(l: jax.Array, b: jax.Array) -> jax.Array:
   """Solve A x = b given A's lower Cholesky factor."""
-  if l.shape[-1] > _UNROLL_MAX:
-    return _blocked_solve_upper_t(l, _blocked_solve_lower(l, b))
+  if l.shape[-1] == 0:
+    return b
   return solve_upper_t(l, solve_lower(l, b))
 
 
 def spd_solve(a: jax.Array, b: jax.Array) -> jax.Array:
-  """Solve SPD A x = b (factor + two substitutions, all fused)."""
+  """Solve SPD A x = b."""
   return cho_solve(cholesky(a), b)

@@ -1,7 +1,7 @@
-"""Quaternion and spatial (Plücker) algebra for the TPU-native engine.
+"""Quaternion and spatial (Plücker) algebra for the engine.
 
 All functions operate on single-world (unbatched) arrays — batching over
-worlds comes from `jax.vmap` at the `step` level, which is the TPU-native
+worlds comes from `jax.vmap` at the `step` level, which is the JAX
 equivalent of the reference's `nworld`-wide kernel launches
 (reference: mujoco_warp/_src/math.py).
 

@@ -1,12 +1,11 @@
 """Multi-device scaling: shard the world axis over a jax Mesh.
 
 The reference is single-GPU (SURVEY §2.7 — no collectives anywhere);
-its scale axis is nworld. The TPU-native scale-out maps that same axis
-over ICI/DCN with ``NamedSharding``: physics is embarrassingly parallel
-over worlds, so the step needs ZERO collectives — XLA partitions every
-per-world op locally, and cross-device communication only appears at an
-RL learner boundary (observation gather / stat psum), provided here as
-helpers.
+its scale axis is nworld. Scale-out maps that same axis over devices
+with ``NamedSharding``: physics is embarrassingly parallel over worlds,
+so the step needs ZERO collectives — XLA partitions every per-world op
+locally, and cross-device communication only appears at an RL learner
+boundary (observation gather / stat psum), provided here as helpers.
 """
 
 from __future__ import annotations
@@ -52,8 +51,8 @@ def make_batch(m: Model, d: Data, nworld: int, qpos_noise: float = 0.0,
 
 def gather_observations(x: jax.Array) -> jax.Array:
   """Learner-boundary all-gather of per-world observations. Inside
-  shard_map/pjit this lowers to one ICI all_gather; the physics step
-  itself never communicates."""
+  shard_map/pjit this lowers to one all_gather; the physics step itself
+  never communicates."""
   return jax.lax.all_gather(x, WORLD_AXIS, tiled=True)
 
 

@@ -3,7 +3,7 @@ hit (reference: mujoco_warp/_src/ray.py:188-700,909; C mj_ray).
 
 Each intersector returns the smallest positive ray parameter t (or +inf
 for a miss); the public ``ray`` takes the min over all geoms —
-brute-force per ray, which on TPU is a dense vectorized sweep (the
+brute-force per ray, as a dense vectorized sweep (the
 reference's `_ray` kernel does the same for non-mesh geoms; BVH
 acceleration lands with the renderer).
 """
@@ -162,7 +162,7 @@ def ray_mesh(faces, pos, mat, pnt, vec):
   """Ray vs triangle mesh: vectorized Moller-Trumbore over the padded
   face array (degenerate padding rows never hit), min positive t
   (reference ray.py:188-700 ray_mesh; BVH acceleration is future work —
-  on TPU a dense masked sweep is the natural first formulation)."""
+  a dense masked sweep is the natural first formulation)."""
   p = mat.T @ (pnt - pos)
   v = mat.T @ vec
   a = faces[:, 0]
@@ -185,7 +185,7 @@ def ray_hfield(m: Model, hid: int, pos, mat, pnt, vec):
   """Ray vs height field: base box + the two triangles of every cell +
   the four side walls clipped by the terrain edge profile (reference
   ray.py:452-620 ray_hfield; C mju_rayHfield). The reference walks only
-  the cells along the ray; on TPU a masked sweep over the whole static
+  the cells along the ray; a masked sweep over the whole static
   grid is the natural formulation (same trade as ray_mesh)."""
   nr, nc = m.hfield_nrow[hid], m.hfield_ncol[hid]
   size = m.hfield_size[hid]

@@ -1,7 +1,7 @@
 """Batch raytracing renderer (reference: mujoco_warp/_src/render.py —
 megakernel raytracer at 516, texture sampling at 44, lighting at 420).
 
-TPU-native formulation: rays for all (camera, pixel) pairs are one
+Vectorized formulation: rays for all (camera, pixel) pairs are one
 vectorized closest-hit sweep over all geoms (the reference's `_ray`
 world-parallel kernel pattern, ray.py:909) — no BVH; the masked dense
 sweep is the natural VPU formulation at benchmark-class geom counts.

@@ -1,7 +1,7 @@
 """Smooth (unconstrained) dynamics: kinematics, COM frames, CRB mass
 matrix, factorization, RNE bias forces, actuator transmission.
 
-TPU-native restructuring of the reference's kernels
+Vectorized restructuring of the reference's kernels
 (mujoco_warp/_src/smooth.py):
 
 * Forward kinematics unrolls a static Python loop over bodies at trace
@@ -13,7 +13,7 @@ TPU-native restructuring of the reference's kernels
   backward pass, velocity forward pass) are masked matmuls against
   precomputed 0/1 ancestry/subtree masks — sums along tree paths commute,
   so a level-order scan (reference smooth.py:463-509,807-826) is just a
-  matrix product the MXU executes directly.
+  matrix product.
 
 * The mass matrix is assembled densely in one masked einsum:
   qM[i,j] = cdof[j] . (crb[body(i)] * cdof[i]) masked by dof ancestry
@@ -31,8 +31,8 @@ from . import math
 from . import wrap as wrap_mod
 from .types import Data, DisableBit, GeomType, JointType, Model, TrnType
 
-# einsum precision: physics needs f32 accumulation; on TPU the default
-# bf16 matmul path loses contact-scale precision.
+# einsum precision: physics needs full f32 products; a GPU may run
+# unqualified f32 matmuls in TF32, which loses contact-scale precision.
 _EINSUM = dict(precision=jax.lax.Precision.HIGHEST)
 
 

@@ -1,19 +1,16 @@
 """Constraint solver: projected Newton and CG on the primal qacc problem
 (reference: mujoco_warp/_src/solver.py; C mj_solPrimal).
 
-TPU-native structure: the whole solve is one ``lax.while_loop`` whose
-carried state is a small pytree; per-world convergence uses a ``done``
-flag folded into every update — the XLA equivalent of the reference's
+Structure: the whole solve is one ``lax.while_loop`` whose carried
+state is a small pytree; per-world convergence uses a ``done`` flag
+folded into every update — the XLA equivalent of the reference's
 conditional CUDA graph ``wp.capture_while`` + per-world early-outs
 (solver.py:3327-3343, 3151-3254).
 
 All math is written **batch-polymorphic**: arrays are (..., nj, nv) /
 (..., nj) with an optional leading world axis. ``solve`` is used both
 single-world (tests, vmap fallback) and batch-native (the perf path,
-``forward.step_batched``), where the per-iteration Newton system is
-solved by ONE Pallas kernel over all worlds (pallas/batch_linalg.py)
-instead of thousands of unfused scalar ops — the role the reference's
-tiled Cholesky + MathDx GEMMs play (solver.py:2368,2732).
+``forward.step_batched``).
 
 The linesearch is the exact convex piecewise-quadratic minimization
 (reference's iterative variant, solver.py:887-1343) implemented as a
@@ -56,81 +53,11 @@ class _Ctx:
   done: jax.Array
 
 
-def _pallas_ok() -> tuple:
-  """(run Pallas lane kernels?, interpret mode?)."""
-  import os
-  on_tpu = jax.default_backend() == 'tpu'
-  force = os.environ.get('MJWT_FORCE_MEGA', '0') == '1'
-  return on_tpu or force, force and not on_tpu
+def spd_solve(a: jax.Array, b: jax.Array) -> jax.Array:
+  """SPD solve over an optional leading world axis (linalg.spd_solve).
 
-
-def _tree_ldl_ok(m: Model, nv: int) -> bool:
-  """Use the tree-sparse LDL kernel for M-structured solves: above the
-  dense values-kernel sweet spot, the O(sum depth) schedule beats the
-  O(nv^2) dense column loop AND keeps Mosaic compile time linear
-  (reference sparse path: smooth.py:1017-1104)."""
-  import os
-  if os.environ.get('MJWT_TREE_LDL', '1') == '0':
-    return False
-  return nv > 32 and len(m.dof_parentid) == nv
-
-
-def _tree_ldl_probed(m: Model, w: int, nv: int, dtype) -> bool:
-  """Mosaic probe for the tree-LDL factor+solve kernel PAIR at this
-  (W, nv). Both m_solve_factor and m_cho_solve gate on this one key so
-  the packed-LD factor layout and its consumer always agree. (Round-4
-  finding: the kernel compiles at grid=1 but the Mosaic compile helper
-  dies at grid>=2 for nv=81/three_humanoids — fallback, don't crash.)"""
-  import functools as _ft
-
-  from .pallas import batch_linalg, probe
-  key = (f'tree_ldl:nv{nv}:w{w}:'
-         f'{hash(m.dof_parentid) & 0xffffffffffff:x}')
-
-  def build():
-    a = jax.ShapeDtypeStruct((w, nv, nv), dtype)
-    b = jax.ShapeDtypeStruct((w, nv), dtype)
-    jax.jit(_ft.partial(
-        batch_linalg.tree_ldl_solve_batched, parentid=m.dof_parentid,
-        return_factor=True)).lower(a, b).compile()
-    jax.jit(_ft.partial(
-        batch_linalg.tree_solve_from_factor_batched,
-        parentid=m.dof_parentid)).lower(a, b).compile()
-  return probe.probe(key, build)
-
-
-def _dense_chol_probed(w: int, nv: int, dtype) -> bool:
-  """Mosaic probe for the dense lane-Cholesky kernel pair."""
-  import functools as _ft
-
-  from .pallas import batch_linalg, probe
-  key = f'dense_chol:nv{nv}:w{w}'
-
-  def build():
-    a = jax.ShapeDtypeStruct((w, nv, nv), dtype)
-    b = jax.ShapeDtypeStruct((w, nv), dtype)
-    jax.jit(_ft.partial(batch_linalg.spd_solve_batched,
-                        return_factor=True)).lower(a, b).compile()
-    jax.jit(batch_linalg.cho_solve_batched).lower(a, b).compile()
-  return probe.probe(key, build)
-
-
-def spd_solve(m: Model, a: jax.Array, b: jax.Array) -> jax.Array:
-  """SPD solve, dispatched: Pallas lane-batched kernel on TPU for
-  batched inputs, unrolled scalar version otherwise (LAPACK-style
-  jnp.linalg above nv=32, where unrolling blows up compile time).
-
-  NOTE: for M-structured matrices prefer m_solve_* (tree-sparse LDL);
+  NOTE: for M-structured matrices prefer m_solve_* (sparse-qM aware);
   this entry serves general SPD systems (Newton Hessians)."""
-  if (a.ndim == 3 and jax.default_backend() == 'tpu' and
-      a.shape[-1] <= 96 and
-      _dense_chol_probed(a.shape[0], a.shape[-1], a.dtype)):
-    from .pallas import batch_linalg
-    return batch_linalg.spd_solve_batched(a, b)
-  # any nv: linalg.spd_solve is unrolled below 32 and BLOCKED above
-  # (never XLA's batched cholesky/solve custom-calls — r5 profile:
-  # three_humanoids nv=81 spent its 406 ms/step almost entirely in
-  # batched jnp.linalg.solve here)
   if a.ndim == 3:
     return jax.vmap(linalg.spd_solve)(a, b)
   return linalg.spd_solve(a, b)
@@ -138,50 +65,16 @@ def spd_solve(m: Model, a: jax.Array, b: jax.Array) -> jax.Array:
 
 def m_solve_factor(m: Model, a: jax.Array, b: jax.Array,
                    diag: jax.Array | None = None):
-  """Factor + solve for MASS-MATRIX-structured systems (A = qM [+ diag],
-  kinematic-tree sparsity). Returns (x, factor); the factor layout is
-  the packed tree LD when the tree kernel dispatched and the packed
-  sparse LD when the model is in sparse-qM mode (pair with m_cho_solve,
-  never batch_linalg.cho_solve_batched)."""
+  """Factor + solve for MASS-MATRIX-structured systems (A = qM [+ diag]).
+  Returns (x, factor); the factor is the packed sparse LD when the model
+  is in sparse-qM mode and the dense Cholesky factor otherwise (pair
+  with m_cho_solve)."""
   if m.qm_meta is not None:                 # packed (..., nM) values
     from . import sparse as sparse_mod
     return sparse_mod.factor_solve(m.qm_meta, a, b, diag=diag)
-  pallas, interp = _pallas_ok()
-  if (a.ndim == 3 and pallas and _tree_ldl_ok(m, a.shape[-1]) and
-      _tree_ldl_probed(m, a.shape[0], a.shape[-1], a.dtype)):
-    from .pallas import batch_linalg
-    return batch_linalg.tree_ldl_solve_batched(
-        a, b, m.dof_parentid, diag=diag, return_factor=True,
-        interpret=interp)
   if diag is not None:
     dmat = jnp.diag(diag)
     a = a + (dmat[None] if a.ndim == 3 else dmat)
-  return spd_solve_factor(m, a, b)
-
-
-def m_cho_solve(m: Model, fac: jax.Array, b: jax.Array) -> jax.Array:
-  """Solve from the factor produced by m_solve_factor."""
-  if m.qm_meta is not None:
-    from . import sparse as sparse_mod
-    return sparse_mod.solve(m.qm_meta, fac, b)
-  pallas, interp = _pallas_ok()
-  if (fac.ndim == 3 and pallas and _tree_ldl_ok(m, fac.shape[-1]) and
-      _tree_ldl_probed(m, fac.shape[0], fac.shape[-1], fac.dtype)):
-    from .pallas import batch_linalg
-    return batch_linalg.tree_solve_from_factor_batched(
-        fac, b, m.dof_parentid, interpret=interp)
-  return cho_solve(m, fac, b)
-
-
-def spd_solve_factor(m: Model, a: jax.Array, b: jax.Array):
-  """Batched SPD factor + solve; returns (x, L)."""
-  if (a.ndim == 3 and jax.default_backend() == 'tpu' and
-      a.shape[-1] <= 96 and
-      _dense_chol_probed(a.shape[0], a.shape[-1], a.dtype)):
-    from .pallas import batch_linalg
-    return batch_linalg.spd_solve_batched(a, b, return_factor=True)
-  # linalg.cholesky/cho_solve: unrolled below 32, blocked above (no XLA
-  # batched-cholesky custom calls — see spd_solve)
   if a.ndim == 3:
     l = jax.vmap(linalg.cholesky)(a)
     return jax.vmap(linalg.cho_solve)(l, b), l
@@ -189,15 +82,14 @@ def spd_solve_factor(m: Model, a: jax.Array, b: jax.Array):
   return linalg.cho_solve(l, b), l
 
 
-def cho_solve(m: Model, l: jax.Array, b: jax.Array) -> jax.Array:
-  if (l.ndim == 3 and jax.default_backend() == 'tpu' and
-      l.shape[-1] <= 96 and
-      _dense_chol_probed(l.shape[0], l.shape[-1], l.dtype)):
-    from .pallas import batch_linalg
-    return batch_linalg.cho_solve_batched(l, b)
-  if l.ndim == 3:
-    return jax.vmap(linalg.cho_solve)(l, b)
-  return linalg.cho_solve(l, b)
+def m_cho_solve(m: Model, fac: jax.Array, b: jax.Array) -> jax.Array:
+  """Solve from the factor produced by m_solve_factor."""
+  if m.qm_meta is not None:
+    from . import sparse as sparse_mod
+    return sparse_mod.solve(m.qm_meta, fac, b)
+  if fac.ndim == 3:
+    return jax.vmap(linalg.cho_solve)(fac, b)
+  return linalg.cho_solve(fac, b)
 
 
 def _mul_qm(m: Model, d: Data, x: jax.Array) -> jax.Array:
@@ -354,7 +246,7 @@ def _update_gradient(m: Model, d: Data, ctx_grad_inputs, jaref=None,
   grad = ma - d.qfrc_smooth - qfrc_constraint
   if m.opt.solver == SolverType.NEWTON:
     dh = d.efc_D * quad.astype(d.efc_D.dtype)
-    # H = M + J^T diag(Dh) J — MXU batched matmul (reference solver.py:2368)
+    # H = M + J^T diag(Dh) J — batched matmul (reference solver.py:2368)
     jd = d.efc_J * dh[..., None]
     h = d.qM + jnp.einsum('...jn,...jk->...nk', jd, d.efc_J, **_EINSUM)
     if cone_middle is not None:
@@ -398,7 +290,7 @@ def _update_gradient(m: Model, d: Data, ctx_grad_inputs, jaref=None,
       nv = h.shape[-1]
       tr = jnp.trace(h, axis1=-2, axis2=-1) / nv
       h = h + (1e-7 * tr)[..., None, None] * jnp.eye(nv, dtype=h.dtype)
-    mgrad = spd_solve(m, h, grad)
+    mgrad = spd_solve(h, grad)
   else:
     mgrad = m_cho_solve(m, d.qLD, grad)
   return grad, mgrad
@@ -484,8 +376,7 @@ def _linesearch(m: Model, d: Data, ctx: _Ctx):
     # bracket the root over log-spaced candidates around the
     # unconstrained Newton step, then one secant (exact within a piece)
     # + one Newton polish. ~6 fused kernels total instead of the
-    # iterative variant's ~100 (fusion-barrier count is what TPU
-    # dispatch pays for, not FLOPs).
+    # iterative variant's ~100.
     K = 10
     scales = jnp.logspace(-3.0, 0.7, K).astype(jaref.dtype)  # 1e-3..5
     alphas = alpha0[..., None] * scales          # (..., K)
@@ -600,139 +491,9 @@ def _iteration(m: Model, d: Data, ctx: _Ctx) -> _Ctx:
   return new_ctx
 
 
-def _fused_args(m: Model, d: Data):
-  """Argument assembly for solver_kernels.newton_solve_batched, shared
-  by the dispatch in solve() and the Mosaic compile probe so both see
-  the identical kernel specialization."""
-  import os as _os
-
-  from . import io as io_mod
-  from .types import IntegratorType
-  nconmax = d.contact.dist.shape[-1]
-  ne, nf, nl, stride, _ = io_mod.efc_layout(m, nconmax)
-  use_ws = not (m.opt.disableflags & DisableBit.WARMSTART)
-  euler_damp = (m.opt.integrator == IntegratorType.EULER and
-                m.has_damping and
-                not (m.opt.disableflags & DisableBit.EULERDAMP))
-  hb = (m.opt.timestep * m.dof_damping) if euler_damp else None
-  interp = (jax.default_backend() != 'tpu' and
-            _os.environ.get('MJWT_FORCE_MEGA', '0') == '1')
-  ell = None
-  con_friction = con_dim = impratio = None
-  if m.opt.cone == ConeType.ELLIPTIC and nconmax > 0 and stride >= 2:
-    ell = (ne + nf + nl, stride, nconmax)
-    con_friction = d.contact.friction
-    con_dim = jnp.where(d.contact.geom[..., 0] >= 0,
-                        d.contact.dim, 0).astype(d.qpos.dtype)
-    impratio = m.opt.impratio
-  from .pallas import solver_kernels as _sk
-  args = (d.qM, d.efc_J, d.efc_D, d.efc_aref, d.efc_frictionloss,
-          d.qfrc_smooth, d.qacc_warmstart, m.opt.tolerance,
-          m.stat.meaninertia, hb, con_friction, con_dim, impratio)
-  static = dict(ne=ne, nf=nf, iterations=m.opt.iterations, use_ws=use_ws,
-                euler_damp=euler_damp, interpret=interp, ell=ell,
-                hcover=_sk.hessian_cover(m))
-  return args, static
-
-
-def _probe_fused(m: Model, d: Data) -> bool:
-  """AOT probe-compile the fused Newton kernel; False → XLA solver.
-  Round-3 lesson generalized: EVERY default-ON Pallas dispatch needs a
-  compile-failure fallback (the elliptic aloha_pot kernel dies in the
-  Mosaic backend even though interpret mode accepts it)."""
-  import functools as _ft
-
-  from .pallas import probe, solver_kernels
-  args, static = _fused_args(m, d)
-  nj = d.efc_J.shape[-2]
-  key = (f'fused_solve:{probe.model_sig(m)}:w{d.qpos.shape[0]}'
-         f':nj{nj}:nc{d.contact.dist.shape[-1]}')
-  shapes = probe.shapes_of(args)
-
-  def build():
-    fn = _ft.partial(solver_kernels.newton_solve_batched, **static)
-    jax.jit(fn).lower(*shapes).compile()
-  return probe.probe(key, build)
-
-
-def uses_fused_kernel(m: Model, d: Data) -> bool:
-  """True when the batched solve dispatches to the single-kernel Pallas
-  Newton solver (pallas/solver_kernels). The kernel also computes
-  qacc_smooth and the qM factor, so fwd_acceleration skips its solve.
-
-  Gated on MJWT_FUSED_SOLVER (default on — TPU-validated: parity vs the
-  XLA solver at rel<=2e-5 with identical iteration counts, and 44->33ms
-  on the humanoid@8192 step; set 0 to fall back). On TPU the kernel is
-  probe-compiled first: a Mosaic rejection logs a warning and falls back
-  to the XLA solver instead of crashing the user's jit."""
-  import os
-  if os.environ.get('MJWT_FUSED_SOLVER', '1') == '0':
-    return False
-  njmax = d.efc_J.shape[-2]
-  backend_ok = (jax.default_backend() == 'tpu' or
-                os.environ.get('MJWT_FORCE_MEGA', '0') == '1')
-  # both cones are in-kernel; the kernel's bracket+secant+Newton-polish
-  # linesearch serves the ls_parallel=False case too (same converged
-  # optimum — phi is convex; MJWT_FUSED_SOLVER=0 restores the XLA
-  # solver which honors the iterative-LS flag exactly)
-  ok = (backend_ok and d.qpos.ndim == 2 and
-        m.opt.solver == SolverType.NEWTON and
-        m.opt.cone in (ConeType.PYRAMIDAL, ConeType.ELLIPTIC) and
-        0 < m.nv <= 32 and njmax > 0 and m.opt.iterations > 0 and
-        not (m.opt.disableflags & DisableBit.CONSTRAINT))
-  return ok and _probe_fused(m, d)
-
-
-def _chunked_solve(m: Model, d: Data) -> Data | None:
-  """Big-batch XLA solve, chunked: the single batch-wide
-  ``lax.while_loop`` iterates until the SLOWEST of all W worlds
-  converges — at 8192 worlds a handful of hard worlds make the whole
-  batch pay max-iterations of full-size Hessian/Cholesky/linesearch
-  work (three_humanoids r4: 422 ms/step). Instead: sort worlds by
-  previous-step solver_niter (temporally coherent difficulty), split
-  into MJWT_SOLVER_CHUNK-world chunks, and run each chunk's while_loop
-  independently under ``lax.map`` — each chunk stops at its own
-  max-iter, so total work ~= sum of chunk maxes ~= batch mean.
-  Returns None when not applicable (small batch, single world,
-  disabled via MJWT_SOLVER_CHUNK=0)."""
-  import os as _os
-  chunk = int(_os.environ.get('MJWT_SOLVER_CHUNK', '1024'))
-  if chunk <= 0 or d.qpos.ndim != 2:
-    return None
-  W = d.qpos.shape[0]
-  if W < 2 * chunk:
-    return None
-  nchunk = -(-W // chunk)
-  wpad = nchunk * chunk
-  perm = jnp.argsort(d.solver_niter)
-  if wpad != W:  # pad with repeats of the easiest world; extras dropped
-    perm = jnp.concatenate(
-        [perm, jnp.broadcast_to(perm[:1], (wpad - W,))])
-  idx = perm.reshape(nchunk, chunk)
-
-  def one_chunk(ix):
-    dd = jax.tree.map(
-        lambda x: jnp.take(x, ix, axis=0)
-        if (hasattr(x, 'ndim') and x.ndim >= 1 and x.shape[0] == W)
-        else x, d)
-    out = _solve_xla(m, dd)
-    return (out.qacc, out.qfrc_constraint, out.efc_force,
-            out.solver_niter)
-
-  qacc, qfc, force, niter = jax.lax.map(one_chunk, idx)
-  # sorted row j (j < W) is world perm[j]; pad rows are dropped
-  inv = jnp.argsort(perm[:W])
-  unchunk = lambda x: jnp.take(
-      x.reshape((wpad,) + x.shape[2:])[:W], inv, axis=0)
-  return d.replace(qacc=unchunk(qacc), qfrc_constraint=unchunk(qfc),
-                   efc_force=unchunk(force),
-                   solver_niter=unchunk(niter))
-
-
 def solve(m: Model, d: Data) -> Data:
   """Entry point (reference solver.py:3296). Works single-world
   ((nj, nv) arrays) or batch-native ((W, nj, nv) arrays)."""
-  dtype = d.qpos.dtype
   njmax = d.efc_J.shape[-2]
   batch_shape = d.qpos.shape[:-1]
   if (njmax == 0 or m.nv == 0 or m.opt.iterations == 0 or
@@ -740,21 +501,6 @@ def solve(m: Model, d: Data) -> Data:
     return d.replace(qacc=d.qacc_smooth,
                      qfrc_constraint=jnp.zeros_like(d.qacc_smooth),
                      solver_niter=jnp.zeros(batch_shape, jnp.int32))
-
-  if uses_fused_kernel(m, d):
-    from .pallas import solver_kernels
-    args, static = _fused_args(m, d)
-    perm, inv_perm = solver_kernels.world_sort_perm(d.solver_niter)
-    qacc, qfc, force, niter, qacc_smooth, qld, qacc_euler = (
-        solver_kernels.newton_solve_batched(*args, perm, inv_perm,
-                                            **static))
-    return d.replace(qacc=qacc, qfrc_constraint=qfc, efc_force=force,
-                     solver_niter=niter, qacc_smooth=qacc_smooth,
-                     qLD=qld, qacc_euler=qacc_euler)
-
-  d_chunked = _chunked_solve(m, d)
-  if d_chunked is not None:
-    return d_chunked
   return _solve_xla(m, d)
 
 

@@ -5,8 +5,7 @@ M[i, j] != 0 only when j is an ancestor-or-self of i — and LDL^T in
 leaf-to-root order factors with ZERO fill-in. At flex scale
 (cloth: nv=2706, ~900 independent 3-dof vertex bodies) the dense
 (nv, nv) storage the engine uses elsewhere is 7.3M entries of which
-~8k are structurally nonzero; the round-3 dense tree-LDL Pallas kernel
-windows that dense matrix into VMEM and explodes (VERDICT r3 weak #6).
+~8k are structurally nonzero.
 
 This module is the genuinely-sparse equivalent of the reference's CSR
 qM + level-scheduled factorization (reference mujoco_warp

@@ -1,4 +1,4 @@
-"""mjwarp-tpu-testspeed: benchmark CLI (reference: mujoco_warp/
+"""mjwt-testspeed: benchmark CLI (reference: mujoco_warp/
 testspeed.py). Loads an MJCF, applies string overrides, steps a world
 batch with OU-Halton ctrl noise, and reports the reference's metric
 shape (steps/s, jit time, ncon/nefc stats, solver iterations, per-stage
@@ -25,8 +25,7 @@ import numpy as np
 def _stage_times(m, batch, nrep=20):
   """Per-stage timings of the REAL step_batched pipeline: the stage
   list comes from forward.batched_stages, i.e. the exact sequence (and
-  kernel dispatch — Pallas megakernels included) that step_batched
-  executes, plus the integrator. Stage boundaries force
+  solver choice) that step_batched executes, plus the integrator. Stage boundaries force
   materialization, so each stage exceeds its fused share — ratios
   matter (the reference's event_trace has the same caveat)."""
   import importlib
@@ -47,18 +46,15 @@ def _stage_times(m, batch, nrep=20):
     return res
 
   b = batch
-  stages = fwd.batched_stages(m, batch, for_step=True)
+  stages = fwd.batched_stages(m, batch)
   for name, fn in stages:
     b = timeit(f'step.forward.{name}', fn, b)
-  if not fwd._glue_gates(m, batch):
-    # glue-folded steps integrate inside solve_glue; everything else
-    # runs a separate integrator stage
-    integ = {IntegratorType.EULER: ('euler', fwd._euler_batched),
-             IntegratorType.RK4: ('rk4', fwd._rk4_batched),
-             IntegratorType.IMPLICITFAST: ('implicitfast',
-                                           fwd._implicit_batched)}
-    iname, ifn = integ[m.opt.integrator]
-    timeit(f'step.{iname}', lambda bb: ifn(m, bb), b)
+  integ = {IntegratorType.EULER: ('euler', fwd._euler_batched),
+           IntegratorType.RK4: ('rk4', fwd._rk4_batched),
+           IntegratorType.IMPLICITFAST: ('implicitfast',
+                                         fwd._implicit_batched)}
+  iname, ifn = integ[m.opt.integrator]
+  timeit(f'step.{iname}', lambda bb: ifn(m, bb), b)
   return out
 
 
@@ -70,7 +66,7 @@ def _benchmark_function(m, batch, name: str, nrep: int):
   import importlib
   fwd = importlib.import_module(f'{__package__}.forward')
 
-  stages = fwd.batched_stages(m, batch, for_step=True)
+  stages = fwd.batched_stages(m, batch)
   names = [n for n, _ in stages]
   if name not in names:
     raise SystemExit(f'unknown stage {name!r}; choices: {names}')
@@ -117,7 +113,7 @@ def main(argv=None):
                  help='benchmark one pipeline stage by name instead of '
                       'the full step (reference testspeed --function); '
                       'stage names as printed by --event_trace, e.g. '
-                      'fwd_position, solve, smooth_mega[pallas]')
+                      'fwd_position, solve[xla]')
   args = p.parse_args(argv)
 
   import mujoco_warp_tpu as mjwt
@@ -158,6 +154,7 @@ def main(argv=None):
     metrics = benchmark(None, m, batch, nstep=args.nstep,
                         ctrlnoise_std=args.ctrlnoise_std)
   final = metrics.pop('final')
+  metrics.pop('memory_analysis', None)
 
   # memory report (reference testspeed.py:101-141)
   def nbytes(tree):

@@ -1,6 +1,6 @@
 """Core data model: Model / Data / Option / Contact as JAX pytrees.
 
-TPU-first design (contrast with reference mujoco_warp/_src/types.py):
+Design (contrast with reference mujoco_warp/_src/types.py):
 
 * The reference stores per-world state as Warp arrays with a leading
   ``nworld`` dim and launches CUDA kernels over (world, entity) grids.
@@ -259,21 +259,6 @@ IntTuple = Tuple[int, ...]
 def _register(cls, meta: tuple[str, ...]):
   data = tuple(f.name for f in dataclasses.fields(cls) if f.name not in meta)
   jax.tree_util.register_dataclass(cls, data_fields=data, meta_fields=meta)
-  # jax.export serialization (the serialized-step warm start,
-  # utils/benchmark.py) needs every pytree node type registered with a
-  # stable name + an auxdata codec; meta fields are plain python values
-  # so pickle round-trips them. Soft-fail on jax versions without the
-  # API.
-  try:
-    import pickle
-
-    from jax import export as _export
-    _export.register_pytree_node_serialization(
-        cls, serialized_name=f'mujoco_warp_tpu.{cls.__name__}',
-        serialize_auxdata=pickle.dumps,
-        deserialize_auxdata=pickle.loads)
-  except Exception:
-    pass
   return cls
 
 
@@ -618,7 +603,7 @@ class Model:
   mesh_hullvert_small: jax.Array
   mesh_faces: jax.Array
   # (nmesh, cmax, 2, 3) per-cluster AABBs of the Morton-clustered face
-  # array (bvh.py — the mesh-BVH role, TPU formulation)
+  # array (bvh.py — the mesh-BVH role)
   mesh_cluster_aabb: jax.Array
   sdf_grids: jax.Array
   sdf_grid_aabb: jax.Array
@@ -633,7 +618,7 @@ class Model:
   dof_ancestor_mask: jax.Array
   # (nbody, nbody) 0/1, subtree_mask[b, c] = 1 iff c is in subtree(b).
   # Turns backward tree accumulations (CRB, subtree com, cfrc) into one
-  # matmul — the TPU-native replacement for the reference's level-order
+  # matmul — the vectorized replacement for the reference's level-order
   # scan kernels (smooth.py:463-509, 807-826).
   body_subtree_mask: jax.Array
   # (nbody, nv) 0/1, 1 iff dof j is an ancestor dof of body b (incl. own).
@@ -784,7 +769,6 @@ class Data:
   qfrc_actuator: jax.Array
   qfrc_smooth: jax.Array
   qacc_smooth: jax.Array
-  qacc_euler: jax.Array
   qfrc_constraint: jax.Array
   qfrc_inverse: jax.Array
   qacc: jax.Array

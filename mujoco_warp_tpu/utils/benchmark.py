@@ -1,9 +1,8 @@
 """Benchmark harness (reference: mujoco_warp/_src/benchmark.py).
 
-The reference captures one CUDA graph and replays it nstep times; the
-TPU-native equivalent is one jitted ``lax.scan`` over steps (XLA compiles
-the whole rollout once, then the device runs it without host round
-trips), with the same Ornstein-Uhlenbeck Halton control noise protocol
+The reference captures one CUDA graph and replays it nstep times; here
+one jitted step with donated buffers is dispatched nstep times, with the
+same Ornstein-Uhlenbeck Halton control noise protocol
 (benchmark.py:41-83) so numbers are comparable.
 """
 
@@ -21,11 +20,10 @@ from ..types import Data, Model
 
 def halton(index: jax.Array, base: int) -> jax.Array:
   """Radical-inverse Halton sequence (reference util_misc.py:60) with a
-  STATIC integer base. Two perf hazards live here at 8192 worlds:
-  a lax.fori_loop emitted 32 serialized micro-fusions (~1.4 ms/step),
-  and a TRACED base makes every %/// a dynamic integer division, which
-  the TPU emulates (~1.5 ms/step). With a static base the whole digit
-  sum is one fused kernel of multiply-shift ops."""
+  STATIC integer base: the digit loop unrolls and every % and // is by
+  a constant, so the whole digit sum is one fused elementwise kernel
+  (a lax.fori_loop would emit one small kernel per digit, and a traced
+  base would make every division a dynamic integer division)."""
   base = int(base)
   idx = index.astype(jnp.int32)
   # enough digits to cover any int32 index: base**d <= 2^31
@@ -61,121 +59,19 @@ def ctrl_noise(m: Model, ctrl: jax.Array, worldid: jax.Array,
   return jnp.where(limited, jnp.clip(new, lo, hi), new)
 
 
-def _lane_formats(batch: Data):
-  """Per-leaf Formats pinning every (W, ...) array with ndim >= 2 to a
-  LANE-MAJOR layout (worlds minor) — the physical layout the Pallas
-  worlds-in-lanes kernels produce. With matching in/out formats on the
-  donated step, XLA's per-step relayout copies of kernel outputs that
-  exist only to satisfy the default batch-major boundary layout become
-  bitcasts (humanoid@8192: Data.efc_J alone cost 362 us/step). The
-  analogue of the reference keeping ONE native layout on persistent
-  CUDA buffers across graph replays."""
-  from jax.experimental.layout import Format, Layout
-
-  def fmt(x):
-    if x.ndim >= 2 and all(s > 0 for s in x.shape):
-      return Format(Layout(tuple(range(1, x.ndim)) + (0,)), x.sharding)
-    # 1D / zero-size: keep the array's existing layout verbatim (a
-    # partially-Format tree makes device_put silently skip layouts)
-    return Format(x.format.layout, x.sharding)
-  return jax.tree.map(fmt, batch)
-
-
-def sort_worlds_with_ids(batch: Data, ids: jax.Array):
-  """sort_worlds plus a caller-side identity array permuted by the same
-  permutation, so side state keyed by world (noise streams, RL buffers)
-  travels with its row and trajectories are bit-identical to the
-  unsorted run — only the lane assignment changes."""
-  W = batch.solver_niter.shape[0]
-  perm = jnp.argsort(batch.solver_niter)
-  out = jax.tree.map(
-      lambda x: jnp.take(x, perm, axis=0)
-      if hasattr(x, 'ndim') and x.ndim >= 1 and x.shape[:1] == (W,)
-      else x, batch)
-  return out, jnp.take(ids, perm, axis=0)
-
-
-def sort_worlds(batch: Data) -> Data:
-  """Persistently reorder the batch's worlds by current solver
-  difficulty (solver_niter ascending). Worlds are independent, so a
-  permutation of the batch is the same physical ensemble — but the
-  worlds-in-lanes Newton kernels iterate each 128-lane block to its
-  own max, so grouping similar-difficulty worlds makes block-max ~=
-  block-mean (humanoid r4 profile: block max 6.5 vs mean 2.8 iters).
-  Doing this ONCE every K steps amortizes the full-pytree gather that
-  made the per-step in-kernel sort a 2x net loss (r5 A/B: 4125us ->
-  7989us). Callers tracking per-world identity (RL obs/reward buffers)
-  should apply the same permutation to their side arrays — returned
-  order is ascending jnp.argsort(solver_niter)."""
-  W = batch.solver_niter.shape[0]
-  perm = jnp.argsort(batch.solver_niter)
-  return jax.tree.map(
-      lambda x: jnp.take(x, perm, axis=0)
-      if hasattr(x, 'ndim') and x.ndim >= 1 and x.shape[:1] == (W,)
-      else x, batch)
-
-
-def _export_key(m: Model, batch: Data, lane_layout: bool,
-                resort_every: int) -> str:
-  """Cache key for a serialized step executable. Includes the repo
-  commit (code changes invalidate) plus every shape the trace bakes."""
-  import hashlib
-  import os
-  import subprocess
-  rev = 'norev'
-  try:
-    rev = subprocess.run(
-        ['git', 'rev-parse', 'HEAD'], capture_output=True, text=True,
-        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        timeout=10).stdout.strip() or 'norev'
-  except Exception:
-    pass
-  import jax as _jax
-  sig = (f'{rev}:{_jax.__version__}:w{batch.qpos.shape[0]}'
-         f':nq{m.nq}nv{m.nv}nu{m.nu}ng{m.ngeom}'
-         f':nc{batch.contact.dist.shape[-1]}:nj{batch.efc_J.shape[-2]}'
-         f':ll{int(lane_layout)}:rs{resort_every}')
-  return hashlib.sha256(sig.encode()).hexdigest()[:24]
-
-
-def _export_path(key: str) -> str:
-  import os
-  from mujoco_warp_tpu import default_cache_dir
-  return os.path.join(default_cache_dir(), 'export', f'{key}.bin')
-
-
 def benchmark(step_fn: Callable[[Model, Data], Data], m: Model,
               batch: Data, nstep: int, ctrlnoise_std: float = 0.01,
               ctrlnoise_rate: float = 0.1,
               chunk: int = 100) -> dict:
   """Run nstep batched steps with ctrl noise; return the reference's
-  metric dict shape (steps/s, jit time, convergence)."""
-  import os
+  metric dict shape (steps/s, jit time, convergence), plus the compiled
+  step's memory_analysis()."""
   nworld = batch.qpos.shape[0]
   worldids = jnp.arange(nworld, dtype=jnp.int32)
 
   from ..forward import step_batched
 
-  # periodic persistent world re-sort (see sort_worlds_with_ids): every
-  # K steps, one full-pytree gather groups similar-difficulty worlds
-  # into the same 128-lane kernel blocks; worldids permute along so the
-  # noise stream travels with its row (trajectories bit-identical to
-  # the unsorted run). Folded into the step under lax.cond so there is
-  # ONE executable with stable layouts. Default OFF: measured on
-  # humanoid@8192 (r5, identical trajectories) K=10 cost 4451 us/step vs
-  # 4204 us unsorted and K=50 was a wash — the cond's buffer copies eat
-  # the block-max savings. Kept as an opt-in for models with heavier
-  # per-iteration solves.
-  resort_every = int(os.environ.get('MJWT_RESORT_EVERY', '0'))
-  use_resort = (resort_every > 0 and nworld > 128 and
-                jax.default_backend() == 'tpu')
-
   def one_step(d, ids, step_i):
-    if use_resort:
-      d, ids = jax.lax.cond(
-          step_i % resort_every == 0,
-          lambda args: sort_worlds_with_ids(*args),
-          lambda args: args, (d, ids))
     noisy = jax.vmap(
         lambda c, w: ctrl_noise(m, c, w, step_i, ctrlnoise_std,
                                 ctrlnoise_rate))(d.ctrl, ids)
@@ -190,90 +86,24 @@ def benchmark(step_fn: Callable[[Model, Data], Data], m: Model,
   # scan carry copies the full Data pytree every step, while donation
   # reuses it in place (the analogue of the reference replaying one
   # CUDA graph on fixed buffers, benchmark.py:128-157)
-  # Lane-major output layouts: every (W, ...) array the Pallas kernels
-  # write gets a worlds-minor layout, so the per-step relayout copies
-  # that existed only to satisfy the default batch-major boundary are
-  # gone (humanoid@8192: ~560 us/step). No in_shardings: jit adapts to
-  # whatever layouts the args carry (one extra retrace on step 2, after
-  # which in == out and the loop is stable; explicit in-constraints
-  # fight XLA, which silently drops layout requests on pass-through
-  # outputs and then rejects its own arrays at the next call).
-  lane_layout = (os.environ.get('MJWT_LANE_LAYOUT', '1') == '1' and
-                 jax.default_backend() == 'tpu')
-  if lane_layout:
-    fmts = _lane_formats(batch)
-    run_step = jax.jit(one_step, donate_argnums=(0,),
-                       out_shardings=(fmts, None, None))
-  else:
-    run_step = jax.jit(one_step, donate_argnums=(0,))
-
-  # serialized-step warm start: tracing the three Pallas kernel bodies
-  # costs ~25 s of pure Python per fresh process (r5 profile: contact
-  # 17.6 s, smooth-mega 8.4 s, glue 5.9 s) — the persistent XLA cache
-  # cannot touch it. jax.export round-trips the WHOLE traced step
-  # (Mosaic kernels embedded as serialized custom calls) so a warm
-  # process skips tracing; XLA compile of the loaded module then hits
-  # the persistent cache. The reference analogue is Warp's 0.3 s
-  # cached graph capture. MJWT_EXPORT=0 disables. Any failure falls
-  # back to the normal trace path.
-  use_export = (os.environ.get('MJWT_EXPORT', '1') == '1' and
-                jax.default_backend() == 'tpu')
-  exp_loaded = False
-  exp_path = None
-  if use_export:
-    try:
-      from jax import export as jexport
-      exp_path = _export_path(_export_key(m, batch, lane_layout,
-                                          resort_every))
-      if os.path.exists(exp_path):
-        with open(exp_path, 'rb') as f:
-          exp = jexport.deserialize(f.read())
-        # re-apply the lane-major output formats on the wrapper jit:
-        # without them the exported call's outputs relayout back to the
-        # default batch-major boundary every step (measured: 4064 ->
-        # 4479 us/step)
-        if lane_layout:
-          run_step = jax.jit(exp.call, donate_argnums=(0,),
-                             out_shardings=(fmts, None, None))
-        else:
-          run_step = jax.jit(exp.call, donate_argnums=(0,))
-        exp_loaded = True
-    except Exception as e:  # stale/incompatible blob: re-trace
-      import logging
-      logging.getLogger(__name__).warning(
-          'serialized step load failed (%s); tracing fresh', e)
-      exp_loaded = False
+  run_step = jax.jit(one_step, donate_argnums=(0,))
 
   ids = worldids
   t0 = time.perf_counter()
-  d, ids, step_i = run_step(batch, ids, jnp.zeros((), jnp.int32))
+  step0 = jnp.zeros((), jnp.int32)
+  compiled = run_step.lower(batch, ids, step0).compile()
+  d, ids, step_i = compiled(batch, ids, step0)
   jax.block_until_ready(d.qpos)
   jit_time = time.perf_counter() - t0
 
-  if use_export and exp_path and not exp_loaded:
-    try:
-      from jax import export as jexport
-      blob = jexport.export(run_step)(
-          jax.tree.map(
-              lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), d),
-          jax.ShapeDtypeStruct(ids.shape, ids.dtype),
-          jax.ShapeDtypeStruct((), jnp.int32)).serialize()
-      os.makedirs(os.path.dirname(exp_path), exist_ok=True)
-      with open(exp_path, 'wb') as f:
-        f.write(blob)
-    except Exception as e:
-      import logging
-      logging.getLogger(__name__).warning(
-          'serialized step save failed (%s)', e)
-
   warmup = min(20, nstep)
   for _ in range(warmup):
-    d, ids, step_i = run_step(d, ids, step_i)
+    d, ids, step_i = compiled(d, ids, step_i)
   jax.block_until_ready(d.qpos)
   t0 = time.perf_counter()
   steps_done = max(nstep - warmup - 1, 1)
   for _ in range(steps_done):
-    d, ids, step_i = run_step(d, ids, step_i)
+    d, ids, step_i = compiled(d, ids, step_i)
   jax.block_until_ready(d.qpos)
   run_time = time.perf_counter() - t0
   del chunk
@@ -290,6 +120,7 @@ def benchmark(step_fn: Callable[[Model, Data], Data], m: Model,
       ncon_mean=float(jnp.mean(d.ncon)),
       nefc_mean=float(jnp.mean(d.nefc)),
       solver_niter_mean=float(jnp.mean(d.solver_niter)),
+      memory_analysis=compiled.memory_analysis(),
       final=d,
   )
 
@@ -311,13 +142,7 @@ def benchmark_replay(m: Model, batch: Data, traj: jax.Array,
     d = step_batched(m, d)
     return d, step_i + 1
 
-  import os
-  if (os.environ.get('MJWT_LANE_LAYOUT', '1') == '1' and
-      jax.default_backend() == 'tpu'):
-    run_step = jax.jit(one_step, donate_argnums=(0,),
-                       out_shardings=(_lane_formats(batch), None))
-  else:
-    run_step = jax.jit(one_step, donate_argnums=(0,))
+  run_step = jax.jit(one_step, donate_argnums=(0,))
   t0 = time.perf_counter()
   d, step_i = run_step(batch, jnp.zeros((), jnp.int32))
   jax.block_until_ready(d.qpos)

@@ -1,4 +1,4 @@
-"""mjwarp-tpu-viewer: interactive viewer bridge (reference:
+"""mjwt-viewer: interactive viewer bridge (reference:
 mujoco_warp/viewer.py). Steps this engine on the accelerator and syncs
 one world back into a host MjData rendered by MuJoCo's native passive
 viewer each frame — the same host<->device-per-frame pattern as the

@@ -1,4 +1,4 @@
-"""Out-of-bounds sweep for Model index fields — the TPU-native analogue
+"""Out-of-bounds sweep for Model index fields — the JAX analogue
 of the reference CI's debug-mode io sweep (`pytest -k io_test
 --debug_mode`, ci.yml:114-117): Warp's debug compilation traps OOB array
 indexing at runtime; JAX instead silently CLAMPS out-of-range gathers,

@@ -1,8 +1,6 @@
-"""Blocked dense Cholesky/solves (linalg.py) for nv > 32 — the XLA-path
-fallback for big models (three_humanoids nv=81, apollo). These replace
-XLA's batched cholesky/triangular_solve custom-calls, which are
-pathologically slow on TPU (r5 profile: they WERE three_humanoids'
-406 ms/step). Reference analogue: block_cholesky.py's wp.tile blocked
+"""Dense Cholesky/solves (linalg.py) against numpy, at the sizes the
+models use: nv <= 32 (humanoid) and above (three_humanoids nv=81,
+apollo). Reference analogue: block_cholesky.py's wp.tile blocked
 factorization."""
 
 import numpy as np
@@ -68,3 +66,17 @@ def test_unrolled_path_unchanged_small_n():
   x = np.asarray(linalg.spd_solve(jnp.asarray(a), jnp.asarray(b)))
   np.testing.assert_allclose(x, np.linalg.solve(a, b), rtol=1e-4,
                              atol=1e-4)
+
+
+def test_batched_spd_solve():
+  """solver.spd_solve over a leading world axis matches numpy."""
+  import importlib
+  solver = importlib.import_module('mujoco_warp_tpu.solver')
+  rng = np.random.default_rng(0)
+  q = rng.normal(size=(8, 5, 5)).astype(np.float32)
+  a = jnp.asarray(q @ np.swapaxes(q, 1, 2) + 3 * np.eye(5,
+                                                        dtype=np.float32))
+  b = jnp.asarray(rng.normal(size=(8, 5)).astype(np.float32))
+  x = solver.spd_solve(a, b)
+  ref = np.linalg.solve(np.asarray(a), np.asarray(b)[..., None])[..., 0]
+  np.testing.assert_allclose(np.asarray(x), ref, rtol=1e-4, atol=1e-4)

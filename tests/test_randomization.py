@@ -1,4 +1,4 @@
-"""Per-world model variation: the TPU-native replacement for the
+"""Per-world model variation: the JAX replacement for the
 reference's batched "*" Model fields (io.py:42-64) is vmap over Model
 numeric leaves."""
 

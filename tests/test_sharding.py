@@ -14,8 +14,15 @@ import mujoco_warp_tpu as mjwt
 from mujoco_warp_tpu import models, parallel
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason='needs >1 device')
-def test_sharded_step_matches_unsharded():
+@pytest.fixture
+def devices():
+  devs = jax.devices()
+  if len(devs) < 2:
+    pytest.skip('needs >1 device')
+  return devs
+
+
+def test_sharded_step_matches_unsharded(devices):
   """Sharding must not change the physics. XLA compiles different f32
   tilings for the partitioned program (measured qM diff ~2e-6), so the
   check is tight-tolerance, not bitwise: smooth dynamics at 1e-5 and
@@ -23,7 +30,7 @@ def test_sharded_step_matches_unsharded():
   mjm = mujoco.MjModel.from_xml_path(models.HUMANOID)
   m = mjwt.put_model(mjm)
   d = mjwt.make_data(m, nconmax=24)
-  nworld = 2 * len(jax.devices())
+  nworld = 2 * len(devices)
   batch = parallel.make_batch(m, d, nworld, qpos_noise=0.02)
 
   step = jax.jit(lambda b: mjwt.step_batched(m, b))
@@ -48,20 +55,16 @@ def test_sharded_step_matches_unsharded():
   assert int(ref.ncon[0]) == int(out.ncon[0])
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason='needs >1 device')
-def test_learner_boundary_collectives():
+def test_learner_boundary_collectives(devices):
   """The observation all-gather and stat psum lower and run on the
   multi-device mesh (the only collectives in the system)."""
-  try:
-    from jax import shard_map
-  except ImportError:
-    from jax.experimental.shard_map import shard_map
+  from jax import shard_map
   from jax.sharding import PartitionSpec as P
 
   mjm = mujoco.MjModel.from_xml_path(models.HUMANOID)
   m = mjwt.put_model(mjm)
   d = mjwt.make_data(m, nconmax=24)
-  nworld = 2 * len(jax.devices())
+  nworld = 2 * len(devices)
   mesh = parallel.make_mesh()
   batch = parallel.shard_batch(
       parallel.make_batch(m, d, nworld, qpos_noise=0.01), mesh)
@@ -77,28 +80,3 @@ def test_learner_boundary_collectives():
   assert obs.shape == (nworld, m.nq)
   np.testing.assert_allclose(float(tot),
                              float(jnp.sum(batch.qpos[:, 2])), rtol=1e-6)
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 2, reason='needs >1 device')
-def test_sharded_step_mega_path(monkeypatch):
-  """Sharded worlds x Pallas megakernel interplay: per-device world
-  counts far below the 128-lane block (here 2/device) must pad and
-  step correctly with the mega gates forced on (interpret off-TPU)."""
-  monkeypatch.setenv('MJWT_FORCE_MEGA', '1')
-  from fixtures import HOPPER
-  mjm = mujoco.MjModel.from_xml_string(HOPPER)
-  m = mjwt.put_model(mjm)
-  d = mjwt.make_data(m, nconmax=8)
-  nworld = 2 * len(jax.devices())
-  mesh = parallel.make_mesh()
-  batch = parallel.shard_batch(
-      parallel.make_batch(m, d, nworld, qpos_noise=0.01), mesh)
-  out = jax.jit(lambda b: mjwt.step_batched(m, b))(batch)
-  jax.block_until_ready(out.qpos)
-  assert not bool(jnp.any(jnp.isnan(out.qpos)))
-  # sharded result == unsharded result
-  out2 = jax.jit(lambda b: mjwt.step_batched(m, b))(
-      parallel.make_batch(m, d, nworld, qpos_noise=0.01))
-  np.testing.assert_allclose(np.asarray(out.qpos), np.asarray(out2.qpos),
-                             atol=1e-6)

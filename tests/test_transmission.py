@@ -102,7 +102,7 @@ def test_adhesion_body_transmission():
 
 def test_adhesion_holds_against_gravity():
   """With ctrl on, the pad must stick to the floor end-to-end (C and
-  TPU agree on qacc)."""
+  this engine agree on qacc)."""
   import jax
   mjm = mujoco.MjModel.from_xml_string(ADHESION)
   mjd = mujoco.MjData(mjm)

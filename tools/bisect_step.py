@@ -1,5 +1,5 @@
 """Bisect warm-state step cost: solver iteration cap sweep + stage
-ablations, on the real TPU."""
+ablations, on the default device."""
 
 import time
 

@@ -1,4 +1,4 @@
-"""Stage-level TPU timing for the humanoid step: where does the time go?
+"""Stage-level timing for the humanoid step: where does the time go?
 
 Times each pipeline stage jitted+vmapped in isolation (stage boundaries
 force materialization, so the sum exceeds the fused step, but ratios

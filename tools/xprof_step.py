@@ -3,7 +3,7 @@
 Runs N warm steps under jax.profiler.trace and aggregates device-side op
 durations from the trace-viewer JSON (plugins/profile/*/*.trace.json.gz).
 Unlike --event_trace (which forces stage materialization), this reports
-what the XLA/Mosaic scheduler actually runs. Reference analogue:
+what the XLA scheduler actually runs. Reference analogue:
 mujoco_warp benchmarks use NSight for the same purpose.
 """
 
@@ -54,7 +54,8 @@ def main():
   with gzip.open(files[0], 'rt') as f:
     trace = json.load(f)
   events = trace.get('traceEvents', [])
-  # device lanes: pid whose process name mentions TPU/device
+  # device lanes: on a GPU the trace names them /device:GPU:<n>, one
+  # thread per CUDA stream; host threads are the other pids
   proc_names = {}
   for e in events:
     if e.get('ph') == 'M' and e.get('name') == 'process_name':
@@ -81,7 +82,8 @@ def main():
     total = sum(agg.values())
     if total < 1000:
       continue
-    print(f'\n=== lane pid={key[0]} [{pname}] tid={key[1]} [{tname}] '
+    where = 'device' if '/device:GPU' in pname else 'host'
+    print(f'\n=== {where} lane pid={key[0]} [{pname}] tid={key[1]} [{tname}] '
           f'total {total/NSTEP:.0f} us/step ===')
     print(f'{"us/step":>10} {"%":>6} {"count":>6}  op')
     for name, dur in agg.most_common(25):
